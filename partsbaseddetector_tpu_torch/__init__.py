@@ -1,0 +1,42 @@
+"""partsbaseddetector_tpu_torch — the parts-based detector on PyTorch and
+CUDA (NVIDIA Hopper).
+
+A port of `partsbaseddetector_tpu` (JAX on a TPU), which stays the
+reference it is tested against. This package imports torch and never
+jax. Its main path is `PartsBasedDetector.detect` with the f32 profile
+and the spatial engine: the part-filter responses and the distance
+transforms run hand-written CUDA kernels (`csrc/`) on a CUDA device,
+and their plain torch versions on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from .detector import PartsBasedDetector
+from .models import (
+    Model,
+    ModelSpec,
+    load_model,
+    make_face_like_model,
+    make_person_like_model,
+    make_synthetic_model,
+    model_from_arrays,
+    model_from_jax,
+    save_model,
+)
+from .types import Candidate, DetectionResult
+
+__all__ = [
+    "Candidate",
+    "DetectionResult",
+    "Model",
+    "ModelSpec",
+    "PartsBasedDetector",
+    "load_model",
+    "make_face_like_model",
+    "make_person_like_model",
+    "make_synthetic_model",
+    "model_from_arrays",
+    "model_from_jax",
+    "save_model",
+    "__version__",
+]

@@ -1,0 +1,20 @@
+"""Model layer: canonical part-model container, packed form, its torch
+device copy, the npz serialization, conversion from the JAX package's
+models, and synthetic model generators."""
+
+from .model import (
+    DeviceComponent,
+    DeviceModel,
+    Model,
+    ModelSpec,
+    PackedComponent,
+    PackedModel,
+    load_model,
+    make_face_like_model,
+    make_person_like_model,
+    make_synthetic_model,
+    pack_model,
+    save_model,
+    to_device,
+)
+from .convert import model_from_arrays, model_from_jax

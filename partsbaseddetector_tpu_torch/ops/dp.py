@@ -1,0 +1,375 @@
+"""Tree min-sum dynamic program + backtracking, batched over scales.
+
+Port of `partsbaseddetector_tpu/ops/dp.py` (`tree_min_sum` with its
+unrolled level schedule, `backtrack_merged`, `backtrack`). Parts are
+stored root-first (parentid[p] < p), so a leaves-to-root walk over tree
+levels is a valid schedule. All parts of one level whose grids and step
+agree run their 2-D distance transforms as one batched call.
+
+Mixture combination follows passmsg (detect_fast.m:118-141):
+msg_l = max_k (DT(score_k) + bias[l, k]), with a first-max-wins
+where-chain over k, and pointers packed as (Ik << 24) | (Iy << 12) | Ix.
+Root scoring adds the per-root-mixture bias and maxes over mixtures
+(detect_fast.m:46-48). Invalid regions and padded mixtures carry -inf
+and never win a max.
+
+Backtracking mirrors detect_fast.m:144-177: the best root placements
+(a stable top-k: equal scores keep the lower flat index first, as
+jax.lax.top_k does) are walked root-to-leaves through the pointer
+tables with gathers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..models.model import DeviceComponent, PackedComponent
+from .distance_transform import shift_distance_transform_2d_packed
+
+NEG_INF = -math.inf
+
+
+def stable_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest k of a 1-D tensor, best first; ties keep index order."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _levels(comp: PackedComponent) -> Dict[int, List[int]]:
+    depth = np.zeros(comp.nparts, dtype=np.int64)
+    for p in range(1, comp.nparts):
+        depth[p] = depth[int(comp.parentid[p])] + 1
+    levels: Dict[int, List[int]] = {}
+    for p in range(1, comp.nparts):
+        levels.setdefault(int(depth[p]), []).append(p)
+    return levels
+
+
+def tree_min_sum(
+    resps: List[torch.Tensor],
+    comp: PackedComponent,
+    dcomp: DeviceComponent,
+    valid_extents: Tuple[List[np.ndarray], List[np.ndarray]],
+    bucket_index: int = 0,
+    buckets_per_octave: int = 1,
+):
+    """Min-sum message passing for one component over a scale bucket.
+
+    resps: the per-bucket (S, Hr, Wr, F) response stacks, -inf outside
+        valid extents; a part with accumulated octave offset d reads
+        bucket bucket_index - d*buckets_per_octave.
+    dcomp: the component's arrays on the responses' device.
+    valid_extents: per-bucket ((S, F) vh, (S, F) vw) NumPy lists; they
+        become per-map live counts for the DT kernel, which then skips
+        the -inf padding.
+    Returns (rootv (S, Hr, Wr), rooti int32, tables {p: packed int32
+    pointers (S, L_parent, H_pargrid, W_pargrid)}).
+    """
+    bucket_of = lambda d: bucket_index - d * buckets_per_octave
+    p_total, m_total = comp.filterid.shape
+    ds = comp.ds_total
+    if bucket_index < int(ds.max()) * buckets_per_octave:
+        raise ValueError(
+            "root bucket must be at least max octave offset octaves coarse"
+        )
+    root_resp = resps[bucket_of(0)]
+    s = root_resp.shape[0]
+    dev = root_resp.device
+    for r in resps:
+        if r.shape[1] >= 4096 or r.shape[2] >= 4096:
+            raise ValueError("packed pointers use 12 bits/coordinate")
+
+    def part_score(p: int) -> torch.Tensor:
+        r = resps[bucket_of(int(ds[p]))][:s]  # align within-bucket scales
+        return r.index_select(-1, dcomp.filterid[p]).permute(0, 3, 1, 2)
+
+    def grid_of(p: int) -> Tuple[int, int]:
+        r = resps[bucket_of(int(ds[p]))]
+        return r.shape[1], r.shape[2]
+
+    def live_counts(p: int, par: int, w_child: int, hr_par: int):
+        """Per-map live source counts (S, M) of the y pass and the x
+        pass: the child's valid height (0 for a map with no valid
+        column) and its valid width (0 when the parent has no valid
+        row)."""
+        fid = comp.filterid[p]
+        vh_sm = valid_extents[0][bucket_of(int(ds[p]))][:s][:, fid]
+        vw_sm = valid_extents[1][bucket_of(int(ds[p]))][:s][:, fid]
+        par_fid = comp.filterid[par]
+        vh_par = (
+            valid_extents[0][bucket_of(int(ds[par]))][:s][:, par_fid]
+            .max(axis=1)
+        )  # (S,)
+        nvy = np.where(np.minimum(vw_sm, w_child) > 0, vh_sm, 0)
+        nvx = np.where(
+            np.minimum(vh_par, hr_par)[:, None] > 0, vw_sm, 0
+        )
+        return nvy, nvx
+
+    def combine(p: int, dt: torch.Tensor, ptr: torch.Tensor):
+        """Mixture combine for one part, all parent mixtures l at once:
+        a first-max-wins where-chain over child mixtures k.
+        dt/ptr: (S, K, Hp, Wp) -> (msg, tbl): (S, L, Hp, Wp)."""
+        b = dcomp.bias[p][None, :, :, None, None]  # (1, L, K, 1, 1)
+        best = dt[:, None, 0] + b[:, :, 0]
+        ptrb = ptr[:, None, 0].expand_as(best)  # (0 << 24) | ptr
+        for k in range(1, m_total):
+            val = dt[:, None, k] + b[:, :, k]
+            pred = val > best
+            best = torch.where(pred, val, best)
+            ptrb = torch.where(pred, (k << 24) | ptr[:, None, k], ptrb)
+        return best, ptrb
+
+    levels = _levels(comp)
+    acc: Dict[int, torch.Tensor] = {}
+    tables: Dict[int, torch.Tensor] = {}
+    for lvl in sorted(levels, reverse=True):
+        # stacked parts must share every DT shape parameter
+        groups: Dict[tuple, List[int]] = {}
+        for p in levels[lvl]:
+            par = int(comp.parentid[p])
+            key = (int(ds[p]), int(ds[par]), int(comp.step[p]))
+            groups.setdefault(key, []).append(p)
+
+        for (_, _, step), parts in groups.items():
+            hr_par, wr_par = grid_of(int(comp.parentid[parts[0]]))
+            scores, nvys, nvxs = [], [], []
+            for p in parts:
+                sc = part_score(p)
+                if p in acc:
+                    sc = sc + acc.pop(p)
+                scores.append(sc)
+                nvy, nvx = live_counts(
+                    p, int(comp.parentid[p]), sc.shape[-1], hr_par
+                )
+                nvys.append(nvy)
+                nvxs.append(nvx)
+            score_g = torch.stack(scores)  # (G, S, M, H, W)
+            pidx = torch.as_tensor(parts, device=dev)
+            nv_y = torch.as_tensor(np.stack(nvys), device=dev)
+            nv_x = torch.as_tensor(np.stack(nvxs), device=dev)
+            dt_g, ptr_g = shift_distance_transform_2d_packed(
+                score_g,
+                dcomp.defw[pidx][:, None],  # (G, 1, M, 4)
+                dcomp.shift_x[pidx][:, None],  # (G, 1, M)
+                dcomp.shift_y[pidx][:, None],
+                dlen_x=wr_par,
+                dlen_y=hr_par,
+                step=step,
+                valid_h=nv_y,
+                valid_w=nv_x,
+            )
+            for i, p in enumerate(parts):
+                msg, tbl = combine(p, dt_g[i], ptr_g[i])
+                tables[p] = tbl
+                par = int(comp.parentid[p])
+                acc[par] = msg if par not in acc else acc[par] + msg
+
+    root = part_score(0)
+    if 0 in acc:
+        root = root + acc.pop(0)
+    root = root + dcomp.root_bias[None, :, None, None]
+    rootv = root[:, 0]
+    rooti = torch.zeros(rootv.shape, dtype=torch.int32, device=dev)
+    for m in range(1, m_total):
+        pred = root[:, m] > rootv
+        rootv = torch.where(pred, root[:, m], rootv)
+        rooti = torch.where(pred, m, rooti)
+    return rootv, rooti, tables
+
+
+def _unpack(ptr: torch.Tensor):
+    """(Ik << 24) | (Iy << 12) | Ix -> (x, y, k) as int64 index tensors."""
+    return (
+        (ptr & 0xFFF).long(),
+        ((ptr >> 12) & 0xFFF).long(),
+        (ptr >> 24).long(),
+    )
+
+
+def _pad_top_k(vals, idx, k, max_det):
+    if k < max_det:  # pad to the static budget
+        vals = torch.cat([vals, vals.new_full((max_det - k,), NEG_INF)])
+        idx = torch.cat([idx, idx.new_zeros(max_det - k)])
+    return vals, idx
+
+
+def backtrack_merged(
+    rootvs: List[torch.Tensor],
+    rootis: List[torch.Tensor],
+    tables_list: List[Dict[int, torch.Tensor]],
+    comp: PackedComponent,
+    dcomp: DeviceComponent,
+    box_scales_list: List[torch.Tensor],
+    box_off_x: int,
+    box_off_y: int,
+    thresh: float,
+    max_det: int,
+):
+    """Candidate extraction across all buckets of a component plus one
+    level-batched tree walk: one global top-k over the concatenated
+    root maps, bucket/scale/coords recovered from static offsets, and
+    one pointer-table gather per tree level. Requires all parts on the
+    root grid (ds_total == 0).
+
+    Returns (boxes (max_det, P, 4) [x1, y1, x2, y2], scores (max_det,),
+    mixtures (max_det, P) int32, valid (max_det,), coords (bucket,
+    scale, xs (max_det, P), ys)).
+    """
+    nb = len(rootvs)
+    p_total = comp.nparts
+    m_total = comp.maxmix
+    dev = rootvs[0].device
+    dtype = rootvs[0].dtype
+    s_l = [int(rv.shape[0]) for rv in rootvs]
+    h_l = [int(rv.shape[1]) for rv in rootvs]
+    w_l = [int(rv.shape[2]) for rv in rootvs]
+    n_l = [s * h * w for s, h, w in zip(s_l, h_l, w_l)]
+    off = np.concatenate([[0], np.cumsum(n_l)]).astype(np.int64)
+    ntot = int(off[-1])
+
+    flat = torch.cat([rv.reshape(-1) for rv in rootvs])
+    k = min(max_det, ntot)
+    vals, idx = _pad_top_k(*stable_top_k(flat, k), k, max_det)
+    valid = vals >= thresh
+
+    off_t = torch.as_tensor(off, device=dev)
+    bid = torch.zeros(idx.shape, dtype=torch.int64, device=dev)
+    for b in range(1, nb):
+        bid = bid + (idx >= int(off[b])).long()
+    off_arr = off_t[:nb][bid]
+    hc = torch.as_tensor(h_l, device=dev)[bid]
+    wc = torch.as_tensor(w_l, device=dev)[bid]
+    local = idx - off_arr
+    hw = hc * wc
+    si = local // hw
+    rem = local % hw
+    yi = rem // wc
+    xi = rem % wc
+    mi = torch.cat([ri.reshape(-1) for ri in rootis])[idx].long()
+
+    # one flat table buffer: part-major, then bucket-major inside —
+    # entry (p, b, s, l, y, x) lives at
+    # (p-1)*M*ntot + M*off[b] + ((s*M + l)*Hb + y)*Wb + x
+    per_part = m_total * ntot
+    if p_total > 1:
+        t_flat = torch.cat(
+            [
+                tables_list[b][p].reshape(-1)
+                for p in range(1, p_total)
+                for b in range(nb)
+            ]
+        )
+    t_off = m_total * off_arr
+
+    xs: List[torch.Tensor] = [None] * p_total
+    ys: List[torch.Tensor] = [None] * p_total
+    ms: List[torch.Tensor] = [None] * p_total
+    xs[0], ys[0], ms[0] = xi, yi, mi
+    levels = _levels(comp)
+    for d in sorted(levels):
+        parts = levels[d]
+        base = torch.as_tensor(
+            (np.asarray(parts, np.int64) - 1) * per_part, device=dev
+        )[:, None]
+        par_x = torch.stack([xs[int(comp.parentid[p])] for p in parts])
+        par_y = torch.stack([ys[int(comp.parentid[p])] for p in parts])
+        par_m = torch.stack([ms[int(comp.parentid[p])] for p in parts])
+        idx_t = (
+            base
+            + t_off[None, :]
+            + ((si[None, :] * m_total + par_m) * hc[None, :] + par_y)
+            * wc[None, :]
+            + par_x
+        )  # (G, K)
+        xg, yg, mg = _unpack(t_flat[idx_t])
+        for g, p in enumerate(parts):
+            xs[p], ys[p], ms[p] = xg[g], yg[g], mg[g]
+
+    soff = np.concatenate([[0], np.cumsum(s_l)]).astype(np.int64)
+    bsc_flat = torch.cat([b_.to(dtype) for b_ in box_scales_list])
+    root_scale = bsc_flat[torch.as_tensor(soff[:nb], device=dev)[bid] + si]
+
+    xs_t = torch.stack(xs)  # (P, K)
+    ys_t = torch.stack(ys)
+    ms_t = torch.stack(ms)
+    sz = dcomp.fsize[torch.arange(p_total, device=dev)[:, None], ms_t]
+    sc_b = root_scale[None, :]  # ds_total == 0: one grid for all parts
+    x1 = (xs_t.to(dtype) + box_off_x) * sc_b
+    y1 = (ys_t.to(dtype) + box_off_y) * sc_b
+    x2 = x1 + sz[..., 1].to(dtype) * sc_b - 1
+    y2 = y1 + sz[..., 0].to(dtype) * sc_b - 1
+    boxes = torch.stack([x1, y1, x2, y2], dim=-1).transpose(0, 1)
+    mixtures = ms_t.transpose(0, 1).to(torch.int32)
+    coords = (
+        bid.to(torch.int32),
+        si.to(torch.int32),
+        xs_t.transpose(0, 1).to(torch.int32),
+        ys_t.transpose(0, 1).to(torch.int32),
+    )
+    return boxes, vals, mixtures, valid, coords
+
+
+def backtrack(
+    rootv: torch.Tensor,
+    rooti: torch.Tensor,
+    tables: Dict[int, torch.Tensor],
+    comp: PackedComponent,
+    dcomp: DeviceComponent,
+    box_scales: torch.Tensor,
+    box_off_x: int,
+    box_off_y: int,
+    thresh: float,
+    max_det: int,
+):
+    """Per-bucket candidate extraction and tree walk; parts may sit on
+    octave-finer grids (ds_total > 0). Box geometry follows
+    detect_fast.m:170-175 (0-based): x1 = (x - padx) * scale,
+    x2 = x1 + sizx*scale - 1. Same return contract as
+    backtrack_merged, with coords (scale, xs, ys)."""
+    s, hr, wr = rootv.shape
+    p_total = comp.nparts
+    dtype = rootv.dtype
+    flat = rootv.reshape(-1)
+    k = min(max_det, flat.shape[0])
+    vals, idx = _pad_top_k(*stable_top_k(flat, k), k, max_det)
+    valid = vals >= thresh
+
+    si = idx // (hr * wr)
+    rem = idx % (hr * wr)
+    yi = rem // wr
+    xi = rem % wr
+    mi = rooti.reshape(-1)[idx].long()
+
+    xs: List[torch.Tensor] = [None] * p_total
+    ys: List[torch.Tensor] = [None] * p_total
+    ms: List[torch.Tensor] = [None] * p_total
+    xs[0], ys[0], ms[0] = xi, yi, mi
+    for p in range(1, p_total):
+        par = int(comp.parentid[p])
+        xs[p], ys[p], ms[p] = _unpack(tables[p][si, ms[par], ys[par], xs[par]])
+
+    root_scale = box_scales[si].to(dtype)
+    ds = comp.ds_total
+    boxes = []
+    for p in range(p_total):
+        # a part d octaves below the root lives on a 2^d finer grid
+        scale = root_scale / float(1 << int(ds[p]))
+        sz = dcomp.fsize[p][ms[p]]  # (max_det, 2) = (fh, fw)
+        x1 = (xs[p].to(dtype) + box_off_x) * scale
+        y1 = (ys[p].to(dtype) + box_off_y) * scale
+        x2 = x1 + sz[:, 1].to(dtype) * scale - 1
+        y2 = y1 + sz[:, 0].to(dtype) * scale - 1
+        boxes.append(torch.stack([x1, y1, x2, y2], dim=-1))
+    boxes = torch.stack(boxes, dim=1)  # (max_det, P, 4)
+    mixtures = torch.stack(ms, dim=1).to(torch.int32)
+    coords = (
+        si.to(torch.int32),
+        torch.stack(xs, dim=1).to(torch.int32),
+        torch.stack(ys, dim=1).to(torch.int32),
+    )
+    return boxes, vals, mixtures, valid, coords

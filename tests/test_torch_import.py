@@ -1,0 +1,49 @@
+"""The torch port must never import jax (its package, and chip_smoke.py).
+
+Runs in a subprocess: this test process has jax loaded (conftest.py
+imports it). The subprocess drops any jax module already loaded and
+installs an import hook that refuses jax, then imports every module of
+the port."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, importlib.abc, pkgutil, sys
+
+    for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+        del sys.modules[name]
+
+    class NoJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError("the torch port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, NoJax())
+    import partsbaseddetector_tpu_torch as pkg
+
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(info.name)
+    import chip_smoke  # noqa: F401
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    assert not loaded, loaded
+    assert "partsbaseddetector_tpu" not in sys.modules
+    print("ok")
+    """
+)
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
