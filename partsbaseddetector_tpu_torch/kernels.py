@@ -32,6 +32,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # src, aux, a, b, shift, nvalid, out, ptr, batch, h, w, dlen, step, stream
     "pbd_dt1d_axis2_f32": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    # g, out, ptr, shift, g_src, g_a, g_b, batch, h, w, dlen, step, has_aux,
+    # stream
+    "pbd_dt1d_axis2_bwd_f32": ([_P] * 7 + [_I] * 6 + [_P], _I),
     # feat, wk, out, s, h, w, c, fh, fw, fp, stream
     "pbd_conv_fp32": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "pbd_conv_smem_bytes": ([_I] * 3, ctypes.c_longlong),
@@ -66,25 +69,40 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if their library is not built yet; returns
-    its path. The compiler's output (ptxas register and shared-memory
-    report included) is kept beside it as `<name>.log`."""
+    its path. Every source compiles in its own `nvcc`, all started
+    together, and one more `nvcc` links the objects. The compilers'
+    output (ptxas register and shared-memory report included) is kept
+    beside the library as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in sources():
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [_nvcc(), *compile_flags, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
+        if not failed:
+            tmp = os.path.join(work, "lib.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        out.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, out)
     return out
 
 

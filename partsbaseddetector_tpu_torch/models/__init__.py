@@ -1,6 +1,6 @@
 """Model layer: canonical part-model container, packed form, its torch
 device copy, the npz serialization, conversion from the JAX package's
-models, and synthetic model generators."""
+models and their trainable pools, and synthetic model generators."""
 
 from .model import (
     DeviceComponent,
@@ -17,4 +17,9 @@ from .model import (
     save_model,
     to_device,
 )
-from .convert import model_from_arrays, model_from_jax
+from .convert import (
+    model_from_arrays,
+    model_from_jax,
+    params_from_jax,
+    params_to_numpy,
+)

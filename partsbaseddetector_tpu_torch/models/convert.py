@@ -5,6 +5,8 @@
 `model_from_jax` copies the NumPy fields of a model object from the JAX
 package field by field, so both packages compute from the same weights.
 It reads attributes only and never imports the JAX package.
+`params_from_jax` / `params_to_numpy` carry the trainable pools
+{'filters', 'defs', 'biases'} across in the same way.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from .model import Model
 
@@ -81,3 +84,27 @@ def model_from_jax(m) -> Model:
         flen=int(m.flen),
         maxsize=None if m.maxsize is None else tuple(int(v) for v in m.maxsize),
     )
+
+
+PARAM_KEYS = ("filters", "defs", "biases")
+
+
+def params_from_jax(params: Mapping, device="cpu") -> dict:
+    """The JAX package's trainable pools (any arrays NumPy can read:
+    jax arrays, NumPy) as f32 torch leaf tensors on `device` that
+    require grad."""
+    return {
+        k: torch.tensor(
+            np.asarray(params[k], np.float32), device=device,
+            requires_grad=True,
+        )
+        for k in PARAM_KEYS
+    }
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """The inverse of params_from_jax: f32 NumPy copies of the pools."""
+    return {
+        k: params[k].detach().to("cpu", torch.float32).numpy().copy()
+        for k in PARAM_KEYS
+    }

@@ -168,10 +168,26 @@ class PackedComponent:
     def maxmix(self) -> int:
         return int(self.filterid.shape[1])
 
-    def tensors(self):
-        """(defw, bias, root_bias) host constants. The trainable
-        (params-gathered) form belongs to the training slice."""
-        return self.defw, self.bias, self.root_bias
+    def tensors(self, params=None):
+        """(defw, bias, root_bias) either as baked host constants or
+        gathered from a params dict {'defs', 'biases'} of torch tensors
+        for the differentiable training path (gradients flow back into
+        the pools). Invalid bias entries are -1e10 there, not -inf:
+        -inf arithmetic turns gradients into NaNs."""
+        if params is None:
+            return self.defw, self.bias, self.root_bias
+        biases = params["biases"]
+        idx = lambda x: torch.as_tensor(
+            np.asarray(x, np.int64), device=biases.device
+        )
+        defw = params["defs"][idx(self.defidx)]  # (P, M, 4)
+        neg = torch.full((), -1e10, dtype=biases.dtype, device=biases.device)
+
+        def gather(ids):
+            ids = idx(ids)
+            return torch.where(ids >= 0, biases[ids.clamp_min(0)], neg)
+
+        return defw, gather(self.biasidx), gather(self.root_biasidx)
 
 
 @dataclasses.dataclass

@@ -4,9 +4,11 @@
 bank in f32, the counterpart of `partsbaseddetector_tpu/ops/conv.py::
 filter_responses`. It is one f32 matrix product per filter tap, so no
 cuDNN algorithm choice (FFT, Winograd, TF32) can enter and the sums stay
-in f32 on either device, provided TF32 matmul is off (the detector turns
-it off). It serves the CPU path and is what the CUDA kernel
-(ops/conv_cuda.py) is held against.
+in f32 on either device, provided TF32 matmul is off (the detector and
+the train step turn it off). It serves the CPU path, is what the CUDA
+kernel (ops/conv_cuda.py) is held against, and is the training path's
+conv on every device: autograd differentiates it in the filters, as the
+JAX package's training differentiates its XLA conv.
 
 Filters of different sizes are zero-padded to one (fh, fw): zero taps
 contribute nothing, so the valid correlation of a padded filter is the

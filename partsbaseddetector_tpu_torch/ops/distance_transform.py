@@ -34,6 +34,7 @@ def shift_distance_transform_2d_packed(
     step: int = 1,
     valid_h=None,
     valid_w=None,
+    differentiable: bool = False,
 ):
     """2-D shifted/subsampled generalized DT.
 
@@ -42,16 +43,22 @@ def shift_distance_transform_2d_packed(
     shift_x / shift_y: broadcastable to score.shape[:-2].
     valid_h: per-map live row count of score (rows beyond are -inf);
     valid_w: per-map live column count. Both default to the full map.
+    differentiable=True runs both passes with K4's backward (score and
+    wdef get gradients; autograd carries them through the transposes).
     Returns (msg (..., dlen_y, dlen_x) f32, ptr (Iy << 12) | Ix int32).
     """
     ax, bx = -wdef[..., 0], -wdef[..., 1]
     ay, by = -wdef[..., 2], -wdef[..., 3]
-    tmp, iy = dt1d(score, ay, by, shift_y, dlen_y, step, nvalid=valid_h)
+    tmp, iy = dt1d(
+        score, ay, by, shift_y, dlen_y, step, nvalid=valid_h,
+        differentiable=differentiable,
+    )
     msg_t, ptr_t = dt1d(
         tmp.transpose(-1, -2).contiguous(),
         ax, bx, shift_x, dlen_x, step,
         nvalid=valid_w,
         aux=iy.transpose(-1, -2).contiguous(),
+        differentiable=differentiable,
     )
     return (
         msg_t.transpose(-1, -2).contiguous(),

@@ -56,6 +56,7 @@ def tree_min_sum(
     valid_extents: Tuple[List[np.ndarray], List[np.ndarray]],
     bucket_index: int = 0,
     buckets_per_octave: int = 1,
+    tensors=None,
 ):
     """Min-sum message passing for one component over a scale bucket.
 
@@ -66,6 +67,12 @@ def tree_min_sum(
     valid_extents: per-bucket ((S, F) vh, (S, F) vw) NumPy lists; they
         become per-map live counts for the DT kernel, which then skips
         the -inf padding.
+    tensors (optional): trainable (defw (P, M, 4), bias (P, M, M),
+        root_bias (M,)) from `PackedComponent.tensors(params)`, replacing
+        dcomp's constants. The DTs then carry K4's backward and get no
+        live counts: training masks with -1e10, not -inf, so every masked
+        cell is an ordinary source, as in the JAX package's XLA DT. The
+        where-chains pass gradients to the selected branch only.
     Returns (rootv (S, Hr, Wr), rooti int32, tables {p: packed int32
     pointers (S, L_parent, H_pargrid, W_pargrid)}).
     """
@@ -82,6 +89,10 @@ def tree_min_sum(
     for r in resps:
         if r.shape[1] >= 4096 or r.shape[2] >= 4096:
             raise ValueError("packed pointers use 12 bits/coordinate")
+    trainable = tensors is not None
+    defw_all, bias_all, root_bias = (
+        tensors if trainable else (dcomp.defw, dcomp.bias, dcomp.root_bias)
+    )
 
     def part_score(p: int) -> torch.Tensor:
         r = resps[bucket_of(int(ds[p]))][:s]  # align within-bucket scales
@@ -114,7 +125,7 @@ def tree_min_sum(
         """Mixture combine for one part, all parent mixtures l at once:
         a first-max-wins where-chain over child mixtures k.
         dt/ptr: (S, K, Hp, Wp) -> (msg, tbl): (S, L, Hp, Wp)."""
-        b = dcomp.bias[p][None, :, :, None, None]  # (1, L, K, 1, 1)
+        b = bias_all[p][None, :, :, None, None]  # (1, L, K, 1, 1)
         best = dt[:, None, 0] + b[:, :, 0]
         ptrb = ptr[:, None, 0].expand_as(best)  # (0 << 24) | ptr
         for k in range(1, m_total):
@@ -143,18 +154,21 @@ def tree_min_sum(
                 if p in acc:
                     sc = sc + acc.pop(p)
                 scores.append(sc)
-                nvy, nvx = live_counts(
-                    p, int(comp.parentid[p]), sc.shape[-1], hr_par
-                )
-                nvys.append(nvy)
-                nvxs.append(nvx)
+                if not trainable:
+                    nvy, nvx = live_counts(
+                        p, int(comp.parentid[p]), sc.shape[-1], hr_par
+                    )
+                    nvys.append(nvy)
+                    nvxs.append(nvx)
             score_g = torch.stack(scores)  # (G, S, M, H, W)
             pidx = torch.as_tensor(parts, device=dev)
-            nv_y = torch.as_tensor(np.stack(nvys), device=dev)
-            nv_x = torch.as_tensor(np.stack(nvxs), device=dev)
+            nv_y = nv_x = None
+            if not trainable:
+                nv_y = torch.as_tensor(np.stack(nvys), device=dev)
+                nv_x = torch.as_tensor(np.stack(nvxs), device=dev)
             dt_g, ptr_g = shift_distance_transform_2d_packed(
                 score_g,
-                dcomp.defw[pidx][:, None],  # (G, 1, M, 4)
+                defw_all[pidx][:, None],  # (G, 1, M, 4)
                 dcomp.shift_x[pidx][:, None],  # (G, 1, M)
                 dcomp.shift_y[pidx][:, None],
                 dlen_x=wr_par,
@@ -162,6 +176,7 @@ def tree_min_sum(
                 step=step,
                 valid_h=nv_y,
                 valid_w=nv_x,
+                differentiable=trainable,
             )
             for i, p in enumerate(parts):
                 msg, tbl = combine(p, dt_g[i], ptr_g[i])
@@ -172,7 +187,7 @@ def tree_min_sum(
     root = part_score(0)
     if 0 in acc:
         root = root + acc.pop(0)
-    root = root + dcomp.root_bias[None, :, None, None]
+    root = root + root_bias[None, :, None, None]
     rootv = root[:, 0]
     rooti = torch.zeros(rootv.shape, dtype=torch.int32, device=dev)
     for m in range(1, m_total):

@@ -15,6 +15,16 @@ Sources at or beyond nvalid_b are excluded. An output with no live source
 is -inf with pointer 0. (The JAX package's sublane kernel leaves its
 float32-min sentinel there instead, and its XLA path -inf; pointers at
 such outputs are don't-care downstream.)
+
+`dt1d(..., differentiable=True)` runs the same forward inside
+`DT1dFunction`, whose backward replaces K4, the custom VJP of
+`partsbaseddetector_tpu/ops/pallas_dt.py::_diff_dt`: the max's
+subgradient, with d = q - v* at the winning source v*,
+  g_src[b, v, w] = sum of g[b, i, w] over the outputs i with v* = v,
+  g_a[b] = sum_{i,w} g*d^2,   g_b[b] = sum_{i,w} g*d.
+On a CUDA tensor it launches `csrc/dt1d_bwd.cu`, on a CPU tensor it runs
+`dt1d_bwd_plain`. shift, nvalid and aux get no gradient, and an output
+that is -inf (no live source) passes none on.
 """
 
 from __future__ import annotations
@@ -25,8 +35,10 @@ import torch
 
 from .. import kernels
 
-# launches of the CUDA kernel by dt1d (the plain version does not count)
+# launches of the CUDA kernels by dt1d and by DT1dFunction's backward (the
+# plain versions do not count)
 launches = 0
+bwd_launches = 0
 
 _NEG_INF = -math.inf
 
@@ -103,12 +115,132 @@ def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
     return out, ptr
 
 
-def dt1d(src, a, b, shift, dlen: int, step: int = 1, nvalid=None, aux=None):
+def _dt1d_fwd(src, a, b, shift, nvalid, dlen, step, aux):
+    """(B, H, W) forward on the maps' device: the kernel on CUDA, the
+    plain version on the CPU."""
+    if src.device.type == "cuda":
+        return _dt1d_cuda(
+            src.contiguous(), a, b, shift, nvalid, dlen, step,
+            None if aux is None else aux.contiguous(),
+        )
+    if src.device.type == "cpu":
+        return dt1d_plain(src, a, b, shift, nvalid, dlen, step, aux)
+    raise ValueError(f"dt1d: no kernel for device {src.device}")
+
+
+def _winners(out, ptr, shift, step: int, has_aux: bool):
+    """For (B, dlen, W) forward outputs: the winning source v*, the
+    offset d = q - v* (rounded as the kernels round it) and the mask of
+    live (not -inf) outputs."""
+    v = (ptr & 0xFFF) if has_aux else ptr
+    i = torch.arange(ptr.shape[1], device=ptr.device, dtype=torch.float32)
+    q = shift[:, None] + step * i  # (B, dlen)
+    return v, q[:, :, None] - v.to(torch.float32), out != _NEG_INF
+
+
+def dt1d_bwd_plain(g_out, out, ptr, shift, h: int, step: int, has_aux: bool):
+    """K4's backward in torch. g_out, out, ptr (B, dlen, W); shift (B,).
+    Returns (g_src (B, h, W), g_a (B,), g_b (B,)). Outputs that are -inf
+    (no live source) contribute nothing. The scatter is `scatter_add_`
+    along axis -2, deterministic on the CPU."""
+    v, d, live = _winners(out, ptr, shift, step, has_aux)
+    g = torch.where(live, g_out, torch.zeros((), device=g_out.device))
+    gd = g * d
+    g_src = torch.zeros(
+        (g_out.shape[0], h, g_out.shape[2]), dtype=g_out.dtype,
+        device=g_out.device,
+    )
+    g_src.scatter_add_(1, v.long(), g)
+    return g_src, (gd * d).sum(dim=(1, 2)), gd.sum(dim=(1, 2))
+
+
+def dt1d_bwd_magnitudes(g_out, out, ptr, shift, h: int, step: int,
+                        has_aux: bool):
+    """The magnitudes the backward sums, which scale its error bounds
+    where two implementations sum in different orders: sum |g| over the
+    outputs that point at each source (B, h, W), and per map sum
+    |g*d^2| and sum |g*d| (B,)."""
+    m_src, m_a, _ = dt1d_bwd_plain(g_out.abs(), out, ptr, shift, h, step, has_aux)
+    _, d, live = _winners(out, ptr, shift, step, has_aux)
+    m_b = torch.where(live, (g_out * d).abs(), torch.zeros((), device=g_out.device))
+    return m_src, m_a, m_b.sum(dim=(1, 2))
+
+
+def _dt1d_bwd_cuda(g_out, out, ptr, shift, h, step, has_aux):
+    global bwd_launches
+    bsz, dlen, w = g_out.shape
+    for name, t, dtype in (
+        ("g_out", g_out, torch.float32), ("out", out, torch.float32),
+        ("ptr", ptr, torch.int32), ("shift", shift, torch.float32),
+    ):
+        if t.device != g_out.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"dt1d backward: {name} must be a contiguous {dtype} tensor "
+                f"on {g_out.device}, got {t.dtype} on {t.device}"
+            )
+    if out.shape != g_out.shape or ptr.shape != g_out.shape:
+        raise ValueError("dt1d backward: g_out, out and ptr shapes differ")
+    if bsz > 65535:
+        raise ValueError(f"dt1d backward: {bsz} maps exceed one launch (65535)")
+    g_src = torch.empty((bsz, h, w), dtype=torch.float32, device=g_out.device)
+    g_a = torch.empty((bsz,), dtype=torch.float32, device=g_out.device)
+    g_b = torch.empty((bsz,), dtype=torch.float32, device=g_out.device)
+    lib = kernels.library()
+    with torch.cuda.device(g_out.device):
+        rc = lib.pbd_dt1d_axis2_bwd_f32(
+            g_out.data_ptr(), out.data_ptr(), ptr.data_ptr(),
+            shift.data_ptr(), g_src.data_ptr(), g_a.data_ptr(),
+            g_b.data_ptr(), bsz, h, w, dlen, step, int(has_aux),
+            torch.cuda.current_stream(g_out.device).cuda_stream,
+        )
+    kernels.check(rc, "dt1d backward kernel launch")
+    bwd_launches += 1
+    return g_src, g_a, g_b
+
+
+def dt1d_bwd(g_out, out, ptr, shift, h: int, step: int, has_aux: bool):
+    """K4's backward on the tensors' device: the kernel on CUDA, the
+    plain version on the CPU."""
+    if g_out.device.type == "cuda":
+        return _dt1d_bwd_cuda(
+            g_out.contiguous(), out, ptr, shift, h, step, has_aux
+        )
+    if g_out.device.type == "cpu":
+        return dt1d_bwd_plain(g_out, out, ptr, shift, h, step, has_aux)
+    raise ValueError(f"dt1d backward: no kernel for device {g_out.device}")
+
+
+class DT1dFunction(torch.autograd.Function):
+    """The (B, H, W) DT with K4's backward. Gradients reach src, a and b;
+    shift, nvalid and aux are grid metadata and get none."""
+
+    @staticmethod
+    def forward(ctx, src, a, b, shift, nvalid, dlen, step, aux):
+        out, ptr = _dt1d_fwd(src, a, b, shift, nvalid, dlen, step, aux)
+        ctx.save_for_backward(out, ptr, shift)
+        ctx.h, ctx.step, ctx.has_aux = src.shape[1], step, aux is not None
+        ctx.mark_non_differentiable(ptr)
+        return out, ptr
+
+    @staticmethod
+    def backward(ctx, g_out, _g_ptr):
+        out, ptr, shift = ctx.saved_tensors
+        g_src, g_a, g_b = dt1d_bwd(
+            g_out, out, ptr, shift, ctx.h, ctx.step, ctx.has_aux
+        )
+        return g_src, g_a, g_b, None, None, None, None, None
+
+
+def dt1d(src, a, b, shift, dlen: int, step: int = 1, nvalid=None, aux=None,
+         differentiable: bool = False):
     """Batched 1-D DT along axis -2 of src (..., H, W).
 
     a, b, shift (f32) and nvalid (per-map live source count, default H)
     broadcast to src.shape[:-2]; aux (optional, int32, src's shape,
     values < 2^12) is carried through the max into the pointer.
+    differentiable=True attaches K4's backward (DT1dFunction): src, a
+    and b get gradients, those of a and b summed over the axes they
+    were broadcast along.
     Returns (out (..., dlen, W) f32, ptr (..., dlen, W) int32)."""
     batch_shape = src.shape[:-2]
     h, w = src.shape[-2], src.shape[-1]
@@ -125,15 +257,10 @@ def dt1d(src, a, b, shift, dlen: int, step: int = 1, nvalid=None, aux=None):
     nv = per_map(h if nvalid is None else nvalid, torch.int32).clamp(0, h)
     src3 = src.reshape(bsz, h, w)
     aux3 = None if aux is None else aux.reshape(bsz, h, w)
-    if dev.type == "cuda":
-        out, ptr = _dt1d_cuda(
-            src3.contiguous(), a_, b_, s_, nv, dlen, step,
-            None if aux3 is None else aux3.contiguous(),
-        )
-    elif dev.type == "cpu":
-        out, ptr = dt1d_plain(src3, a_, b_, s_, nv, dlen, step, aux3)
+    if differentiable:
+        out, ptr = DT1dFunction.apply(src3, a_, b_, s_, nv, dlen, step, aux3)
     else:
-        raise ValueError(f"dt1d: no kernel for device {dev}")
+        out, ptr = _dt1d_fwd(src3, a_, b_, s_, nv, dlen, step, aux3)
     return (
         out.reshape(*batch_shape, dlen, w),
         ptr.reshape(*batch_shape, dlen, w),

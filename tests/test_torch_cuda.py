@@ -5,7 +5,8 @@ kernels): without one it skips. On the card, run
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 The kernels are held to: the DT bit for bit (values, and pointers at
-live outputs); the conv within 1e-5 * sum|x*w|.
+live outputs); the conv within 1e-5 * sum|x*w|; the DT's backward (K4)
+within 1e-5 * sum|g| per source and 1e-5 * sum|g*d^2|, sum|g*d| per map.
 """
 
 import os
@@ -84,3 +85,72 @@ def test_golden_fixture_on_cuda(cuda):
     for c, boxes, score in zip(got, g["boxes"], g["scores"]):
         assert abs(c.score - score) < 2e-3
         np.testing.assert_allclose(c.parts, boxes, atol=5e-2)
+
+
+@pytest.mark.parametrize(
+    "bsz,h,w,dlen,step,aux,ints,dead",
+    [
+        (7, 40, 50, 37, 1, False, False, False),  # y pass
+        (7, 50, 40, 45, 1, True, False, False),  # x pass with aux
+        (5, 36, 20, 15, 2, False, False, False),  # step 2
+        (6, 24, 40, 24, 1, True, True, False),  # integer ties
+        (6, 30, 33, 30, 1, True, False, True),  # dead outputs
+        (320, 66, 86, 66, 1, False, False, False),  # person26 240x320 y pass
+    ],
+)
+def test_dt_backward_kernel_matches_plain(cuda, bsz, h, w, dlen, step, aux, ints, dead):
+    from partsbaseddetector_tpu_torch.ops import dt_cuda
+
+    gen = torch.Generator().manual_seed(bsz * h + w)
+    if ints:
+        src = torch.randint(-4, 5, (bsz, h, w), generator=gen).float()
+        a = -torch.randint(1, 3, (bsz,), generator=gen).float()
+        b = torch.randint(-2, 3, (bsz,), generator=gen).float()
+        g = torch.randint(-3, 4, (bsz, dlen, w), generator=gen).float()
+    else:
+        src = torch.randn((bsz, h, w), generator=gen) * 3
+        a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
+        b = 0.3 * torch.randn((bsz,), generator=gen)
+        g = torch.randn((bsz, dlen, w), generator=gen)
+    nv = torch.full((bsz,), h, dtype=torch.int32)
+    if dead:
+        nv[::2] = 0
+    sh = torch.randint(-3, 4, (bsz,), generator=gen).float()
+    ax = torch.randint(0, 4096, (bsz, h, w), generator=gen, dtype=torch.int32) if aux else None
+    src, a, b, sh, nv, g = (t.to(cuda) for t in (src, a, b, sh, nv, g))
+    ax = ax.to(cuda) if aux else None
+    out, ptr = dt_cuda.dt1d(src, a, b, sh, dlen, step, nvalid=nv, aux=ax)
+    assert bool((out == -torch.inf).any()) == dead
+    before = dt_cuda.bwd_launches
+    got = dt_cuda.dt1d_bwd(g, out, ptr, sh, h, step, aux)
+    assert dt_cuda.bwd_launches == before + 1
+    want = dt_cuda.dt1d_bwd_plain(g, out, ptr, sh, h, step, aux)
+    # g_src within 1e-5 * sum|g| per source, g_a and g_b within 1e-5 *
+    # sum|g*d^2| and sum|g*d| per map: the kernel sums in another order
+    scale = dt_cuda.dt1d_bwd_magnitudes(g, out, ptr, sh, h, step, aux)
+    for x, y, m in zip(got, want, scale):
+        assert x.shape == y.shape
+        assert bool(((x - y).abs() <= 1e-5 * m).all())
+
+
+def test_dt_autograd_on_cuda_matches_cpu(cuda):
+    """dt1d(differentiable=True) launches the forward and the backward
+    kernel on the card and gives the CPU path's gradients."""
+    from partsbaseddetector_tpu_torch.ops import dt_cuda
+
+    gen = torch.Generator().manual_seed(5)
+    src = torch.randn((3, 4, 21, 17), generator=gen)
+    a = -(0.01 + 0.05 * torch.rand((4,), generator=gen))
+    b = 0.3 * torch.randn((4,), generator=gen)
+    cot = torch.randn((3, 4, 19, 17), generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (src, a, b)]
+        before = dt_cuda.bwd_launches
+        out, _ = dt_cuda.dt1d(*leaves, torch.zeros((), device=dev), 19, 1,
+                              differentiable=True)
+        (out * cot.to(dev)).sum().backward()
+        assert dt_cuda.bwd_launches == before + (dev != "cpu")
+        grads.append([t.grad.cpu() for t in leaves])
+    for x, y in zip(*grads):
+        torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-5)

@@ -1,8 +1,9 @@
-"""The torch port must never import jax (its package, and chip_smoke.py).
+"""The torch port must never import jax, optax or orbax (its package,
+training included, and chip_smoke.py).
 
 Runs in a subprocess: this test process has jax loaded (conftest.py
-imports it). The subprocess drops any jax module already loaded and
-installs an import hook that refuses jax, then imports every module of
+imports it). The subprocess drops any such module already loaded and
+installs an import hook that refuses them, then imports every module of
 the port."""
 
 import os
@@ -16,12 +17,13 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+    BANNED = ("jax", "jaxlib", "optax", "orbax")
+    for name in [m for m in sys.modules if m.split(".")[0] in BANNED]:
         del sys.modules[name]
 
     class NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in BANNED:
                 raise ImportError("the torch port imported " + name)
             return None
 
@@ -32,7 +34,10 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(info.name)
     import chip_smoke  # noqa: F401
 
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    for mod in ("train.sgd", "train.fit", "train.checkpoint", "pipeline",
+                "ops.reference_pipeline"):
+        assert pkg.__name__ + "." + mod in sys.modules, mod
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not loaded, loaded
     assert "partsbaseddetector_tpu" not in sys.modules
     print("ok")
