@@ -36,6 +36,27 @@ script exits non-zero without the final line):
                  equal to the CPU path's within rtol 1e-4, atol 1e-5, the
                  median ms/step over 5 steps after a warm-up and images/s,
                  then a torch.profiler pass over one step
+ 10. dt1d_window the adaptive-window DT (K5) against dt1d_window_plain on
+                 the card, bit for bit, and against K1 inside out_valid,
+                 (-inf, 0) beyond (y pass, x pass with aux, per-column
+                 out_valid with 0 and dlen, all-dead maps, integer ties
+                 with and without aux, a == 0 with b == 0 and b != 0, the
+                 person26 VGA finest-bucket shapes with the plan's
+                 out_valid); ms of K5, K1 and the plain version there
+ 11. window_detect  person26 at 480x640 with PBD_DT_WINDOW=1: K5 launched,
+                 the DT passes that took K5 and K1, candidates bit-identical
+                 to the default detect, ms/image medians of both measured
+                 in turns, then a torch.profiler pass
+ 12. fourier     person26 at 480x640 with conv_engine="fourier": finite and
+                 deterministic over two runs, the spatial engine's valid
+                 mask at thresh=-1e9 with max |dscore| <= 5e-3, ms/image,
+                 the spectra's device bytes, the CPU path's candidates at
+                 120x160, then a torch.profiler pass
+ 13. rgbd        the JAX bench's config 5 set-up (person26, thresh=-1e9,
+                 16 detections, DepthGate(0.6 m, fx 10, tolerance 0.5),
+                 device depth filter, seeded uint16 depth): K1 and K2
+                 launched, the CPU path's candidates and keep mask on a
+                 120x160 crop, ms/image
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -45,8 +66,10 @@ package beside this script, it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -254,7 +277,8 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, gen, card) -> tuple:
     return counts, ms, det, im
 
 
-def profile_person26(torch, det, im, wall_ms: float, reps: int = 3) -> None:
+def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
+                     phase: str = "profile") -> None:
     """torch.profiler over `reps` person26 VGA detects: device time per
     image by kernel family and for the busiest kernels, and the idle
     share against the unprofiled wall time `wall_ms` (the profiler's own
@@ -276,14 +300,18 @@ def profile_person26(torch, det, im, wall_ms: float, reps: int = 3) -> None:
         e for e in prof.key_averages()
         if dev_us(e) and e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    families = {"dt1d": 0.0, "conv": 0.0, "other": 0.0}
+    families = {"dt1d": 0.0, "dt1d_window": 0.0, "conv": 0.0, "fft": 0.0,
+                "other": 0.0}
     for e in kernels:
-        key = "dt1d" if "dt1d_axis2" in e.key else (
-            "conv" if "conv_fp32" in e.key else "other")
+        key = next((k for k, name in (("dt1d_window", "dt1d_window"),
+                                      ("dt1d", "dt1d_axis2"),
+                                      ("conv", "conv_fp32"),
+                                      ("fft", "fft")) if name in e.key.lower()),
+                   "other")
         families[key] += dev_us(e) / 1e3 / reps
     busy = sum(families.values())
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    log("profile", profiled_wall_ms_per_image=f"{profiled:.3f}",
+    log(phase, profiled_wall_ms_per_image=f"{profiled:.3f}",
         device_busy_ms_per_image=f"{busy:.3f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - busy / wall_ms):.3f}",
         device_ops_per_image=sum(e.count for e in kernels) // reps,
@@ -499,6 +527,285 @@ def profile_train_step(torch, ctx, wall_ms: float) -> None:
         top=whole["top"])
 
 
+@contextlib.contextmanager
+def window_dt(on: bool):
+    """PBD_DT_WINDOW set to 1 (on) or 0 for the duration."""
+    old = os.environ.get("PBD_DT_WINDOW")
+    os.environ["PBD_DT_WINDOW"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PBD_DT_WINDOW", None)
+        else:
+            os.environ["PBD_DT_WINDOW"] = old
+
+
+def capture_window_passes(det, im, dtm):
+    """One person26 detect with the window DT, recording the arguments
+    of every K5 call (ops/distance_transform.py calls dt1d_window once
+    for the y pass and once for the x pass of each group); returns the
+    (y, x) pair of the group with the largest maps."""
+    calls = []
+    orig = dtm.dt1d_window
+
+    def record(src, a, b, shift, dlen, out_valid, nvalid=None, aux=None):
+        calls.append((src, a, b, shift, nvalid, out_valid, dlen, aux))
+        return orig(src, a, b, shift, dlen, out_valid, nvalid=nvalid, aux=aux)
+
+    dtm.dt1d_window = record
+    try:
+        with window_dt(True):
+            det.detect(im)
+    finally:
+        dtm.dt1d_window = orig
+    k = max(range(0, len(calls), 2), key=lambda j: calls[j][0].numel())
+    return calls[k], calls[k + 1]
+
+
+def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
+    """K5 against dt1d_window_plain (bit for bit, don't-care outputs
+    included) and against K1 inside out_valid; returns its timing beside
+    K1's and the plain version's at the person26 VGA finest bucket, on
+    the DT inputs and consumer extents a real detect gives it."""
+    dev = DEVICE
+
+    def flat(src, a, b, shift, nvalid, out_valid, dlen, aux):
+        cols = (*src.shape[:-2], src.shape[-1])
+        src, a, b, shift, nvalid, aux = dt_cuda.flatten_maps(
+            src, a, b, shift, nvalid, aux)
+        ov = torch.as_tensor(out_valid, dtype=torch.int32, device=dev)
+        ov = ov.broadcast_to(cols).reshape(src.shape[0], cols[-1])
+        ov = ov.clamp(0, dlen).contiguous()
+        return (src.contiguous(), a, b, shift, nvalid, ov, dlen,
+                None if aux is None else aux.contiguous())
+
+    def run(name, src, a, b, shift, nvalid, ov, dlen, aux=None):
+        got = dt_cuda.dt1d_window(src, a, b, shift, dlen, ov, nvalid=nvalid, aux=aux)
+        want = dt_cuda.dt1d_window_plain(src, a, b, shift, nvalid, ov, dlen, aux)
+        k1 = dt_cuda.dt1d(src, a, b, shift, dlen, 1, nvalid=nvalid, aux=aux)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"dt1d_window {name}: differs from its plain version")
+        inside = torch.arange(dlen, device=dev)[None, :, None] < ov[:, None, :]
+        for x, y, what in ((got[0], k1[0], "values"), (got[1], k1[1], "pointers")):
+            if not torch.equal(x[inside], y[inside]):
+                raise AssertionError(f"dt1d_window {name}: {what} differ from K1")
+        if not (bool((got[0][~inside] == -torch.inf).all())
+                and bool((got[1][~inside] == 0).all())):
+            raise AssertionError(f"dt1d_window {name}: don't-care outputs not (-inf, 0)")
+        return int(inside.sum()), int((~inside).sum())
+
+    def case(name, bsz, h, w, dlen, aux=False, ints=False, dead=False, ab=None):
+        if ints:
+            src = torch.randint(-4, 5, (bsz, h, w), generator=gen).float()
+            a = -torch.randint(1, 3, (bsz,), generator=gen).float()
+            b = torch.randint(-2, 3, (bsz,), generator=gen).float()
+        else:
+            src = torch.randn((bsz, h, w), generator=gen) * 3
+            a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
+            b = 0.3 * torch.randn((bsz,), generator=gen)
+        if ab is not None:
+            a.fill_(ab[0])
+            b.fill_(ab[1])
+        nvalid = torch.randint(h // 2, h + 1, (bsz,), generator=gen, dtype=torch.int32)
+        if dead:
+            nvalid[::2] = 0
+        src = torch.where(torch.arange(h)[None, :, None] < nvalid[:, None, None],
+                          src, -torch.inf)
+        shift = torch.randint(-3, 4, (bsz,), generator=gen).float()
+        ov = torch.randint(0, dlen + 1, (bsz, w), generator=gen, dtype=torch.int32)
+        ov[:, 0], ov[:, 1] = 0, dlen  # per-column extents include 0 and dlen
+        ax = torch.randint(0, 4096, (bsz, h, w), generator=gen,
+                           dtype=torch.int32) if aux else None
+        args = [t.to(dev) for t in (src, a, b, shift, nvalid, ov)]
+        return run(name, *args, dlen, None if ax is None else ax.to(dev))
+
+    cases = [
+        case("ypass", 6, 40, 50, 37),
+        case("xpass_aux", 6, 50, 40, 45, aux=True),
+        case("dead", 6, 30, 33, 30, aux=True, dead=True),
+        case("ties", 8, 24, 40, 24, ints=True),
+        case("ties_aux", 8, 24, 40, 24, ints=True, aux=True),
+        case("a0_b0", 6, 30, 33, 30, ab=(0.0, 0.0)),
+        case("a0_b_nonzero", 6, 30, 33, 30, aux=True, ab=(0.0, 0.5)),
+    ]
+    ypass, xpass = capture_window_passes(det, im, dtm)
+    yargs, xargs = flat(*ypass), flat(*xpass)
+    cases.append(run("p26_y", *yargs))
+    cases.append(run("p26_x_aux", *xargs))
+
+    def k5():
+        dt_cuda.dt1d_window(*yargs[:4], yargs[6], yargs[5], nvalid=yargs[4])
+        dt_cuda.dt1d_window(*xargs[:4], xargs[6], xargs[5], nvalid=xargs[4],
+                            aux=xargs[7])
+
+    def k1():
+        dt_cuda.dt1d(*yargs[:4], yargs[6], 1, nvalid=yargs[4])
+        dt_cuda.dt1d(*xargs[:4], xargs[6], 1, nvalid=xargs[4], aux=xargs[7])
+
+    def plain():
+        dt_cuda.dt1d_window_plain(*yargs)
+        dt_cuda.dt1d_window_plain(*xargs)
+
+    # in turns, as the kernels and the plain version share the card
+    ms, k1_ms, plain_ms = [], [], []
+    for _ in range(2):
+        ms.append(cuda_ms(k5, reps=10))
+        k1_ms.append(cuda_ms(k1, reps=10))
+        plain_ms.append(cuda_ms(plain, reps=3))
+    shape = (f"y{tuple(yargs[0].shape)}+x_aux{tuple(xargs[0].shape)}")
+    ms, k1_ms, plain_ms = min(ms), min(k1_ms), min(plain_ms)
+    inside = sum(c[0] for c in cases[-2:])
+    dont = sum(c[1] for c in cases[-2:])
+    log("dt1d_window", cases=len(cases), exact=True, max_abs_err=0.0,
+        shape=shape, p26_outputs_exact=inside, p26_outputs_dont_care=dont,
+        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms}
+
+
+def timed_detect(torch, det, im, depth=None) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.detect(im, depth)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_window_detect(torch, dt_cuda, conv_cuda, det, im, card) -> dict:
+    """person26 VGA with PBD_DT_WINDOW=1 against the default detect of
+    the same frame: bit-identical candidates, and both ms/image medians
+    measured in turns."""
+    want = det.detect(im)
+    dt_cuda.launches = 0
+    dt_cuda.window_launches = 0
+    conv_cuda.launches = 0
+    with window_dt(True):
+        got = det.detect(im)
+    torch.cuda.synchronize()
+    counts = {"dt1d_window": dt_cuda.window_launches, "dt1d": dt_cuda.launches,
+              "conv": conv_cuda.launches}
+    if counts["dt1d_window"] <= 0 or counts["conv"] <= 0:
+        raise AssertionError(f"window_detect: a kernel was not launched: {counts}")
+    if not same_candidates(got, want):
+        raise AssertionError("window_detect: candidates differ from the default detect")
+    window, default = [], []
+    for _ in range(7):
+        default.append(timed_detect(torch, det, im))
+        with window_dt(True):
+            window.append(timed_detect(torch, det, im))
+    ms, ms_default = statistics.median(window), statistics.median(default)
+    log("window_detect", imsize="x".join(map(str, im.shape[:2])), buckets_per_octave=2,
+        candidates=len(got), identical_to_default=True,
+        dt_passes_k5=counts["dt1d_window"], dt_passes_k1=counts["dt1d"],
+        conv_launches=counts["conv"], ms_per_image_median=f"{ms:.3f}",
+        default_ms_per_image_median=f"{ms_default:.3f}",
+        ms_all=",".join(f"{t:.3f}" for t in window),
+        default_ms_all=",".join(f"{t:.3f}" for t in default), card=f"'{card}'")
+    return {"launches": counts["dt1d_window"], "ms": ms}
+
+
+def dense_equal(np, a, b) -> bool:
+    return all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("boxes", "scores", "components", "valid", "mixtures")
+    )
+
+
+def check_fourier(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> tuple:
+    """person26 VGA with the Fourier engine, against the spatial engine
+    at thresh=-1e9 and against the CPU path at 120x160; returns the
+    detector and its ms/image median."""
+    model = pbd.make_person_like_model()
+    model.thresh = -1e9
+    kw = dict(buckets_per_octave=2, device=DEVICE)
+    det = pbd.PartsBasedDetector(model, conv_engine="fourier", **kw)
+    spatial = pbd.PartsBasedDetector(model, **kw)
+    dt_cuda.launches = 0
+    conv_cuda.launches = 0
+    t0 = time.perf_counter()
+    first = det.detect_dense(im)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches}
+    if counts["dt1d"] <= 0:
+        raise AssertionError(f"fourier: the DT kernel was not launched: {counts}")
+    if not np.isfinite(first.scores[first.valid]).all() or not first.valid.any():
+        raise AssertionError("fourier: non-finite or no scores")
+    if not dense_equal(np, first, det.detect_dense(im)):
+        raise AssertionError("fourier: two runs differ")
+    want = spatial.detect_dense(im)
+    if not np.array_equal(first.valid, want.valid):
+        raise AssertionError("fourier: valid mask differs from the spatial engine's")
+    dscore = float(np.abs(first.scores - want.scores)[first.valid].max())
+    if dscore > 5e-3:
+        raise AssertionError(f"fourier: max |dscore| {dscore:.3g} against spatial")
+    spectra = det._spectra[tuple(im.shape[:2])]
+    nbytes = sum(t.numel() * t.element_size() for t in spectra)
+    times, spatial_times = [], []
+    for _ in range(7):
+        times.append(timed_detect(torch, det, im))
+        spatial_times.append(timed_detect(torch, spatial, im))
+    small = im[:120, :160]
+    cpu = pbd.PartsBasedDetector(model, conv_engine="fourier",
+                                 buckets_per_octave=2, max_detections=32)
+    card_det = pbd.PartsBasedDetector(model, conv_engine="fourier",
+                                      max_detections=32, **kw)
+    if not same_candidates(card_det.detect(small), cpu.detect(small),
+                           score_tol=1e-4, box_tol=1e-3):
+        raise AssertionError("fourier: CUDA and CPU paths differ at 120x160")
+    log("fourier", imsize="x".join(map(str, im.shape[:2])), buckets_per_octave=2,
+        candidates=int(first.valid.sum()), deterministic=True,
+        max_dscore_vs_spatial=f"{dscore:.3e}", bound="5e-3",
+        dt1d_launches=counts["dt1d"], conv_launches=counts["conv"],
+        first_call_s=f"{setup_s:.3f}", spectra_device_bytes=nbytes,
+        ms_per_image_median=f"{statistics.median(times):.3f}",
+        spatial_ms_per_image_median=f"{statistics.median(spatial_times):.3f}",
+        ms_all=",".join(f"{t:.3f}" for t in times),
+        cpu_match_120x160="32 candidates", card=f"'{card}'")
+    return det, statistics.median(times)
+
+
+def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
+    """The JAX package's bench config 5 (bench.py:738-757) on the card:
+    both depth stages on the device, a uint16 millimetre frame."""
+    from partsbaseddetector_tpu_torch.depth import DepthGate
+
+    model = pbd.make_person_like_model()
+    model.thresh = -1e9
+    kw = dict(max_detections=16, buckets_per_octave=2, device_depth_filter=True,
+              depth_gate=DepthGate(object_width_m=0.6, fx=10.0, tolerance=0.5))
+    rng = np.random.RandomState(5)
+    depth16 = ((1.0 + rng.rand(*im.shape[:2])) * 1000.0).astype(np.uint16)
+    det = pbd.PartsBasedDetector(model, device=DEVICE, **kw)
+    dt_cuda.launches = 0
+    conv_cuda.launches = 0
+    dense = det.detect_dense(im, depth16)
+    torch.cuda.synchronize()
+    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"rgbd: a kernel was not launched: {counts}")
+    if dense.depth_keep is None or not np.isfinite(dense.scores[dense.valid]).all():
+        raise AssertionError("rgbd: no keep mask or non-finite scores")
+    kept = len(det.detect(im, depth16))
+    times = [timed_detect(torch, det, im, depth16) for _ in range(7)]
+    small, dsmall = im[:120, :160], depth16[:120, :160]
+    cpu = pbd.PartsBasedDetector(model, **kw)
+    got, want = det.detect_dense(small, dsmall), cpu.detect_dense(small, dsmall)
+    if not np.array_equal(got.depth_keep, want.depth_keep):
+        raise AssertionError("rgbd: keep masks differ from the CPU path's at 120x160")
+    if not same_candidates(det.detect(small, dsmall), cpu.detect(small, dsmall),
+                           score_tol=1e-4, box_tol=1e-3):
+        raise AssertionError("rgbd: CUDA and CPU paths differ at 120x160")
+    log("rgbd", imsize="x".join(map(str, im.shape[:2])), depth="uint16 mm", candidates=int(dense.valid.sum()),
+        kept_by_depth_filter=kept, dt1d_launches=counts["dt1d"],
+        conv_launches=counts["conv"],
+        ms_per_image_median=f"{statistics.median(times):.3f}",
+        ms_all=",".join(f"{t:.3f}" for t in times),
+        cpu_match_120x160=f"{int(want.depth_keep.sum())} of {len(want.depth_keep)} kept",
+        card=f"'{card}'")
+
+
 def main() -> int:
     try:
         import torch
@@ -516,6 +823,7 @@ def main() -> int:
         import partsbaseddetector_tpu_torch.train as pbd_train
         from partsbaseddetector_tpu_torch import kernels
         from partsbaseddetector_tpu_torch.ops import conv, conv_cuda, dt_cuda
+        from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -550,6 +858,13 @@ def main() -> int:
     profile_person26(torch, det, im, ms)
     bwd_row = check_dt_bwd(torch, dt_cuda, gen)
     train = check_train(torch, np, pbd, pbd_train, dt_cuda, card)
+    win_row = check_dt_window(torch, dt_cuda, dtm, gen, det, im)
+    win = check_window_detect(torch, dt_cuda, conv_cuda, det, im, card)
+    with window_dt(True):
+        profile_person26(torch, det, im, win["ms"], phase="window_profile")
+    det_f, ms_f = check_fourier(torch, np, pbd, dt_cuda, conv_cuda, im, card)
+    profile_person26(torch, det_f, im, ms_f, phase="fourier_profile")
+    check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card)
 
     table = {"kernels": [
         {"name": "dt1d_axis2", "route": "cuda",
@@ -565,6 +880,10 @@ def main() -> int:
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:809",
          "launches": train["launches"], **bwd_row},
+        {"name": "dt1d_window_axis2", "route": "cuda",
+         "source": "partsbaseddetector_tpu_torch/csrc/dt1d_window.cu",
+         "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:321",
+         "launches": win["launches"], **win_row},
     ]}
     print(json.dumps(table))
     print(card)

@@ -6,7 +6,10 @@ reference it is tested against. This package imports torch and never
 jax. Its main path is `PartsBasedDetector.detect` with the f32 profile
 and the spatial engine: the part-filter responses and the distance
 transforms run hand-written CUDA kernels (`csrc/`) on a CUDA device,
-and their plain torch versions on the CPU.
+and their plain torch versions on the CPU. The Fourier engine, RGB-D
+detection (`depth_gate`, `device_depth_filter`), the adaptive-window
+distance transform (`PBD_DT_WINDOW=1`) and the SGD training step are
+ported too.
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,23 @@
 """PartsBasedDetector: the public detect() API of the torch port.
 
-Port of `partsbaseddetector_tpu/detector.py` for the f32 profile and
-the spatial engine. API as in the reference detector
-(include/PartsBasedDetector.hpp:167-175): construct, distribute_model(),
-name, detect(image) -> candidates. One call runs, on the detector's
-device:
+Port of `partsbaseddetector_tpu/detector.py` for the f32 profile. API
+as in the reference detector (include/PartsBasedDetector.hpp:167-175):
+construct, distribute_model(), name, detect(image[, depth]) ->
+candidates. One call runs, on the detector's device:
 
     HOG pyramid (matrix-product resampling + tent histograms)
-      -> batched part-filter responses per bucket (CUDA kernel K2)
-      -> -inf valid-extent masking
-      -> tree min-sum DP (2-D distance transforms: CUDA kernel K1)
-      -> merged top-k backtracking
+      -> batched part-filter responses per bucket (CUDA kernel K2, or
+         the Fourier engine: cuFFT around batched matrix products)
+      -> -inf valid-extent masking (and, with a depth_gate and a depth
+         map, the plausible-depth response gate)
+      -> tree min-sum DP (2-D distance transforms: CUDA kernel K1, or
+         the adaptive-window kernel K5 under PBD_DT_WINDOW=1)
+      -> merged top-k backtracking (and, with device_depth_filter, the
+         candidates' depth-consistency keep mask)
 
 and only the final dense candidate tensors come back to the host. The
-per-image-size plan is built once and cached.
+per-image-size plan (and the Fourier engine's filter spectra) is built
+once and cached.
 """
 
 from __future__ import annotations
@@ -25,13 +29,29 @@ import numpy as np
 import torch
 
 from .models.model import Model, PackedModel, pack_model, to_device
+from .ops.depth_device import component_tables, depth_keep_mask
 from .ops.dp import backtrack, backtrack_merged, stable_top_k
-from .pipeline import make_plan, root_scores
+from .pipeline import (
+    depth_response_masks,
+    fourier_spectra_args,
+    make_plan,
+    root_scores,
+)
 from .ops.pyramid import PyramidPlan
 from .types import Candidate, DetectionResult
 from .utils.profiling import validate_image
 
 NEG_INF = -math.inf
+
+
+def _depth_meters_host(depth: np.ndarray) -> np.ndarray:
+    """A depth frame in metres for the host filter: uint16 frames are
+    millimetres (the reference demo divides by 1000, src/demo.cpp:95-99),
+    converted in f32 as on the device."""
+    depth = np.asarray(depth)
+    if depth.dtype == np.uint16:
+        return depth.astype(np.float32) / 1000.0
+    return depth
 
 
 class PartsBasedDetector:
@@ -40,10 +60,19 @@ class PartsBasedDetector:
     Args:
       model: canonical Model (optional; call distribute_model later).
       max_detections: per-image candidate budget.
+      conv_engine: "spatial" (the K2 kernel) or "fourier" (FFT path, the
+          intended FourierConvolutionEngine behaviour).
       border_mode: "matlab" (authoritative) or "cpp" (the C++ demo's
           same-size grids, one-padded borders, one-cell box offset).
       buckets_per_octave: >1 splits each octave into finer scale
           buckets (less padding waste); must divide the interval.
+      depth_gate: a depth.DepthGate. With it, detect(im, depth) masks
+          the response cells whose local depth is implausible for their
+          scale before the DP (the intended filterResponseByDepth,
+          src/SearchSpacePruning.cpp:47-70).
+      device_depth_filter: run the candidate depth-consistency filter
+          on the device (ops/depth_device.py) instead of on the host
+          (depth.py, the exact reference and the default).
       device: where the pipeline runs ("cuda", "cuda:1", "cpu"). On a
           CUDA device the part-filter responses and the distance
           transforms run the hand-written kernels; on the CPU they run
@@ -56,9 +85,8 @@ class PartsBasedDetector:
     breaks its score parity.
 
     Options of the JAX detector that later slices port raise
-    NotImplementedError: conv_engine="fourier", a dtype other than
-    float32, rerank_fp32, depth_gate, device_depth_filter and
-    nms_overlap.
+    NotImplementedError: a dtype other than float32 (the bf16 profile),
+    rerank_fp32 and nms_overlap.
     """
 
     def __init__(
@@ -75,9 +103,7 @@ class PartsBasedDetector:
         rerank_fp32: Optional[bool] = None,
         device="cpu",
     ):
-        if conv_engine == "fourier":
-            raise NotImplementedError("the Fourier engine is not ported yet")
-        if conv_engine != "spatial":
+        if conv_engine not in ("spatial", "fourier"):
             raise ValueError(f"unknown conv engine: {conv_engine}")
         if dtype not in (torch.float32, np.float32, "float32"):
             raise NotImplementedError(
@@ -85,8 +111,6 @@ class PartsBasedDetector:
             )
         if rerank_fp32:
             raise NotImplementedError("the fp32 re-rank is not ported yet")
-        if depth_gate is not None or device_depth_filter:
-            raise NotImplementedError("RGB-D detection is not ported yet")
         if nms_overlap is not None:
             raise NotImplementedError("device part NMS is not ported yet")
         if border_mode not in ("matlab", "cpp"):
@@ -95,11 +119,16 @@ class PartsBasedDetector:
         torch.backends.cudnn.allow_tf32 = False
         self.device = torch.device(device)
         self.max_detections = int(max_detections)
+        self.conv_engine = conv_engine
         self.border_mode = border_mode
         self.buckets_per_octave = int(buckets_per_octave)
+        self.depth_gate = depth_gate
+        self.device_depth_filter = bool(device_depth_filter)
         self._packed: Optional[PackedModel] = None
         self._dmodel = None
+        self._depth_tables = None
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
+        self._spectra: Dict[Tuple[int, int], List[torch.Tensor]] = {}
         if model is not None:
             self.distribute_model(model)
 
@@ -110,7 +139,12 @@ class PartsBasedDetector:
         (ref: src/PartsBasedDetector.cpp:102-127)."""
         self._packed = pack_model(model, border=self.border_mode)
         self._dmodel = to_device(self._packed, self.device)
+        self._depth_tables = tuple(
+            torch.as_tensor(t, device=self.device)
+            for t in component_tables(self._packed)
+        )
         self._plans.clear()
+        self._spectra.clear()
 
     @property
     def name(self) -> str:
@@ -119,27 +153,64 @@ class PartsBasedDetector:
     def detect(
         self, im: np.ndarray, depth: Optional[np.ndarray] = None
     ) -> List[Candidate]:
-        """Detect candidates in an (H, W, 3) image, best first."""
-        if depth is not None:
-            raise NotImplementedError("RGB-D detection is not ported yet")
-        return self.detect_dense(im).to_candidates()
+        """Detect candidates in an (H, W, 3) image, best first.
 
-    def detect_dense(self, im: np.ndarray) -> DetectionResult:
-        """Run detection, returning dense padded arrays (host copies)."""
+        With a depth map ((H', W') metres, or uint16 millimetres) the
+        candidates are also filtered for part depth consistency
+        (src/SearchSpacePruning.cpp:73-95): on the host by default, or
+        by the device keep mask with device_depth_filter. With a
+        depth_gate, implausible-depth response cells are pruned on the
+        device before the DP."""
+        result = self.detect_dense(im, depth)
+        if depth is not None and result.depth_keep is not None:
+            result.valid = result.valid & result.depth_keep
+            return result.to_candidates()
+        candidates = result.to_candidates()
+        if depth is not None:
+            from .depth import filter_candidates_by_depth
+
+            candidates = filter_candidates_by_depth(
+                self._packed, candidates, _depth_meters_host(depth)
+            )
+        return candidates
+
+    def detect_dense(
+        self, im: np.ndarray, depth: Optional[np.ndarray] = None
+    ) -> DetectionResult:
+        """Run detection, returning dense padded arrays (host copies).
+        The depth map is used here only with a depth_gate (response
+        pruning) or device_depth_filter (depth_keep, the keep mask);
+        the host candidate filter stays in detect()."""
         if self._packed is None:
             raise RuntimeError("distribute_model() must be called first")
         im = validate_image(im, min_side=5 * self._packed.spec.sbin)
         if im.dtype != np.uint8:
             im = im.astype(np.float32, copy=False)
         frame = torch.as_tensor(np.ascontiguousarray(im)).to(self.device)
-        boxes, scores, comps, valid, mixtures = self._run(frame)
+        d_dev = None
+        if depth is not None and (
+            self.depth_gate is not None or self.device_depth_filter
+        ):
+            depth = np.asarray(depth)
+            if depth.ndim != 2:
+                raise ValueError(f"depth must be (H, W), got {depth.shape}")
+            if depth.dtype != np.uint16:
+                depth = depth.astype(np.float32, copy=False)
+            # a uint16 frame travels as uint16 and becomes metres in f32
+            # on the device, as _depth_meters_host does on the host
+            d_dev = torch.as_tensor(np.ascontiguousarray(depth)).to(self.device)
+            if depth.dtype == np.uint16:
+                d_dev = d_dev.to(torch.float32) / 1000.0
+        out = self._run(frame, d_dev)
+        host = [t.cpu().numpy() for t in out]
         return DetectionResult(
-            boxes=boxes.cpu().numpy(),
-            scores=scores.cpu().numpy(),
-            components=comps.cpu().numpy(),
-            valid=valid.cpu().numpy(),
+            boxes=host[0],
+            scores=host[1],
+            components=host[2],
+            valid=host[3],
             nparts_by_component=[c.nparts for c in self._packed.components],
-            mixtures=mixtures.cpu().numpy(),
+            mixtures=host[4],
+            depth_keep=host[5] if len(host) > 5 else None,
         )
 
     # -- internals --------------------------------------------------------------
@@ -152,14 +223,35 @@ class PartsBasedDetector:
             )
         return self._plans[key]
 
-    def _run(self, im: torch.Tensor):
+    def _fft_spectra(self, imsize: Tuple[int, int]) -> List[torch.Tensor]:
+        """The Fourier engine's filter spectra for one image size,
+        uploaded once and kept with the plan."""
+        key = (int(imsize[0]), int(imsize[1]))
+        if key not in self._spectra:
+            self._spectra[key] = [
+                torch.as_tensor(sp, device=self.device)
+                for sp in fourier_spectra_args(self._packed, self._plan(key))
+            ]
+        return self._spectra[key]
+
+    def _run(self, im: torch.Tensor, depth: Optional[torch.Tensor] = None):
         packed, dmodel = self._packed, self._dmodel
         spec = packed.spec
         plan = self._plan(im.shape[:2])
         max_det = self.max_detections
         p_max = packed.max_nparts
         dev = self.device
-        scores = root_scores(im, packed, dmodel, plan)
+        rmasks = None
+        if depth is not None and self.depth_gate is not None:
+            rmasks = depth_response_masks(depth, plan, spec, self.depth_gate)
+        scores = root_scores(
+            im, packed, dmodel, plan, engine=self.conv_engine,
+            response_masks=rmasks,
+            fft_spectra=(
+                self._fft_spectra(im.shape[:2])
+                if self.conv_engine == "fourier" else None
+            ),
+        )
 
         # box origin: MATLAB subtracts the virtual padding; the C++ demo
         # subtracts one cell (DynamicProgram.cpp:239)
@@ -224,6 +316,9 @@ class PartsBasedDetector:
 
         masked = torch.where(valid, scores_all, NEG_INF)
         top, order = stable_top_k(masked, max_det)
-        return (
+        out = (
             boxes[order], top, comps[order], top > NEG_INF, mixtures[order],
         )
+        if depth is not None and self.device_depth_filter:
+            out += (depth_keep_mask(depth, out[0], out[2], *self._depth_tables),)
+        return out

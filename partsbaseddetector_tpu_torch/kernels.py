@@ -35,6 +35,9 @@ _SIGNATURES = {
     # g, out, ptr, shift, g_src, g_a, g_b, batch, h, w, dlen, step, has_aux,
     # stream
     "pbd_dt1d_axis2_bwd_f32": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    # src, aux, a, b, shift, nvalid, out_valid, out, ptr, batch, h, w, dlen,
+    # stream
+    "pbd_dt1d_window_axis2_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
     # feat, wk, out, s, h, w, c, fh, fw, fp, stream
     "pbd_conv_fp32": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "pbd_conv_smem_bytes": ([_I] * 3, ctypes.c_longlong),

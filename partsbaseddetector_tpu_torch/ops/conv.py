@@ -14,10 +14,20 @@ Filters of different sizes are zero-padded to one (fh, fw): zero taps
 contribute nothing, so the valid correlation of a padded filter is the
 true response on the shared top-left-anchored grid. Rows and columns
 beyond a filter's true valid extent are masked to -inf downstream.
+
+The Fourier engine (`conv_engine="fourier"`) is the port of
+`partsbaseddetector_tpu/ops/conv.py::fft_filter_spectra` and the native
+branch of `filter_responses_fft`: `torch.fft` transforms (cuFFT on the
+card) around a channel contraction of four real f32 batched matrix
+products, with the filters' conjugate spectra computed once on the host
+in float64. No Pallas kernel lies on that path in the JAX package
+either. Its DFT-as-matmul branch (`ops/dft.py`) worked around the TPU
+backend's batch-limited FFT and is not carried over.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,3 +45,61 @@ def filter_responses(features: torch.Tensor, filters: torch.Tensor) -> torch.Ten
             tap = features[:, i : i + oh, j : j + ow, :].reshape(-1, c)
             out += (tap @ filters[:, i, j, :].T).reshape(s, oh, ow, f)
     return out
+
+
+# spectra memo keyed on (id(filters), h, w); each entry keeps its filters
+# array alive, so an id cannot be recycled while its entry lives
+_SPECTRA_CACHE: dict = {}
+
+
+def fft_filter_spectra(filters: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Conjugate filter spectra for an (h, w) transform, on the host:
+    float64 rfft2 of the (F, fh, fw, C) bank, rounded once to f32.
+    Returns (2, h, w//2 + 1, C, F) float32, [real, imag]. Memoized per
+    (filters, h, w)."""
+    key = (id(filters), int(h), int(w))
+    hit = _SPECTRA_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    filt_f = np.conj(
+        np.fft.rfft2(
+            np.transpose(filters.astype(np.float64), (0, 3, 1, 2)), s=(h, w)
+        )
+    )  # (F, C, h, wf)
+    bt = np.transpose(filt_f, (2, 3, 1, 0))  # (h, wf, C, F)
+    out = np.stack([bt.real, bt.imag]).astype(np.float32)
+    _SPECTRA_CACHE[key] = (filters, out)
+    return out
+
+
+def filter_responses_fft(
+    features: torch.Tensor, filters: torch.Tensor, spectra=None
+) -> torch.Tensor:
+    """filter_responses' contract through the frequency domain: the
+    circular correlation irfft2(rfft2(feat) * conj(rfft2(filt))) is
+    exact on the valid (H-fh+1, W-fw+1) grid. Channel spectra are summed
+    before one inverse transform per (scale, filter), as four real f32
+    (S, C) x (C, F) products per frequency (TF32 must be off, as the
+    detector sets it). spectra (optional): fft_filter_spectra's array
+    for (H, W), as a tensor on the features' device; without it the
+    filters are transformed here in f32."""
+    s, h, w, c = features.shape
+    f, fh, fw, fc = filters.shape
+    if fc != c:
+        raise ValueError(f"channel mismatch: features {c}, filters {fc}")
+    feat_f = torch.fft.rfft2(features.permute(0, 3, 1, 2), s=(h, w))
+    if spectra is None:
+        filt_f = torch.conj(
+            torch.fft.rfft2(filters.permute(0, 3, 1, 2), s=(h, w))
+        )
+        br = filt_f.real.permute(2, 3, 1, 0)  # (h, wf, C, F)
+        bi = filt_f.imag.permute(2, 3, 1, 0)
+    else:
+        br, bi = spectra[0], spectra[1]
+    a = feat_f.permute(0, 2, 3, 1)  # (S, h, wf, C)
+    mm = lambda x, y: torch.einsum("shwc,hwcf->shwf", x, y)
+    re = mm(a.real, br) - mm(a.imag, bi)
+    im = mm(a.real, bi) + mm(a.imag, br)
+    spec = torch.complex(re, im).permute(0, 3, 1, 2)  # (S, F, h, wf)
+    out = torch.fft.irfft2(spec, s=(h, w))
+    return out[:, :, : h - fh + 1, : w - fw + 1].permute(0, 2, 3, 1)

@@ -14,14 +14,27 @@ Conventions (as in the JAX package):
   - the output grid is q = shift + i*step (0-based);
   - ties go to the smallest source index.
 The JAX package's kernel-dispatch heuristics and its scale/row packing
-are TPU-lane artefacts and are not carried over.
+are TPU-lane artefacts and are not carried over. Its one opt-in kernel
+choice is: with PBD_DT_WINDOW=1 both passes of an inference DT at step 1
+run the adaptive-window kernel K5 (ops/dt_cuda.py::dt1d_window) instead
+of K1, as `pallas_dt.py::dt1d_pallas` selects `_dt1d_pallas_window`.
 """
 
 from __future__ import annotations
 
+import os
+from functools import partial
+
 import torch
 
-from .dt_cuda import dt1d
+from .dt_cuda import dt1d, dt1d_window
+
+
+def use_window() -> bool:
+    """The adaptive-window DT (K5) is opt-in, as in the JAX package:
+    PBD_DT_WINDOW=1 (`partsbaseddetector_tpu/ops/pallas_dt.py::
+    _use_window`)."""
+    return os.environ.get("PBD_DT_WINDOW", "0") == "1"
 
 
 def shift_distance_transform_2d_packed(
@@ -35,6 +48,8 @@ def shift_distance_transform_2d_packed(
     valid_h=None,
     valid_w=None,
     differentiable: bool = False,
+    out_valid_h=None,
+    out_valid_w=None,
 ):
     """2-D shifted/subsampled generalized DT.
 
@@ -45,20 +60,34 @@ def shift_distance_transform_2d_packed(
     valid_w: per-map live column count. Both default to the full map.
     differentiable=True runs both passes with K4's backward (score and
     wdef get gradients; autograd carries them through the transposes).
+    out_valid_h (..., W) / out_valid_w (..., dlen_y): optional consumer
+    extents, per output column of the y pass and per output row of the
+    x pass. Outputs beyond them are don't-care: the caller masks them to
+    -inf downstream. Passing them also says that shift_x and shift_y
+    are integral. With both given, step 1, no gradient and
+    PBD_DT_WINDOW=1, both passes run K5, which returns (-inf, 0) there
+    and stops each scan early; otherwise they are ignored.
     Returns (msg (..., dlen_y, dlen_x) f32, ptr (Iy << 12) | Ix int32).
     """
     ax, bx = -wdef[..., 0], -wdef[..., 1]
     ay, by = -wdef[..., 2], -wdef[..., 3]
-    tmp, iy = dt1d(
-        score, ay, by, shift_y, dlen_y, step, nvalid=valid_h,
-        differentiable=differentiable,
-    )
-    msg_t, ptr_t = dt1d(
+    if (
+        out_valid_h is not None
+        and out_valid_w is not None
+        and step == 1
+        and not differentiable
+        and use_window()
+    ):
+        pass_y = partial(dt1d_window, out_valid=out_valid_h)
+        pass_x = partial(dt1d_window, out_valid=out_valid_w)
+    else:
+        pass_y = pass_x = partial(dt1d, step=step, differentiable=differentiable)
+    tmp, iy = pass_y(score, ay, by, shift_y, dlen_y, nvalid=valid_h)
+    msg_t, ptr_t = pass_x(
         tmp.transpose(-1, -2).contiguous(),
-        ax, bx, shift_x, dlen_x, step,
+        ax, bx, shift_x, dlen_x,
         nvalid=valid_w,
         aux=iy.transpose(-1, -2).contiguous(),
-        differentiable=differentiable,
     )
     return (
         msg_t.transpose(-1, -2).contiguous(),

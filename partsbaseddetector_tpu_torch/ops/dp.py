@@ -66,7 +66,8 @@ def tree_min_sum(
     dcomp: the component's arrays on the responses' device.
     valid_extents: per-bucket ((S, F) vh, (S, F) vw) NumPy lists; they
         become per-map live counts for the DT kernel, which then skips
-        the -inf padding.
+        the -inf padding, and the consumer extents that let the
+        adaptive-window DT (PBD_DT_WINDOW=1) stop its scans early.
     tensors (optional): trainable (defw (P, M, 4), bias (P, M, M),
         root_bias (M,)) from `PackedComponent.tensors(params)`, replacing
         dcomp's constants. The DTs then carry K4's backward and get no
@@ -106,20 +107,35 @@ def tree_min_sum(
         """Per-map live source counts (S, M) of the y pass and the x
         pass: the child's valid height (0 for a map with no valid
         column) and its valid width (0 when the parent has no valid
-        row)."""
+        row). Then the consumer extents of the JAX package's
+        `_valid_counts`: the y pass's output rows that must be exact per
+        child column, ovy (S, M, W_child) = the parent's valid height
+        where the column is valid, else 0; the x pass's output columns
+        per parent row, ovx (S, 1, H_parent) = the parent's valid width
+        where the row is valid, else 0. The DT outputs beyond them meet
+        -inf parent scores downstream."""
         fid = comp.filterid[p]
         vh_sm = valid_extents[0][bucket_of(int(ds[p]))][:s][:, fid]
         vw_sm = valid_extents[1][bucket_of(int(ds[p]))][:s][:, fid]
         par_fid = comp.filterid[par]
-        vh_par = (
-            valid_extents[0][bucket_of(int(ds[par]))][:s][:, par_fid]
+        vh_par, vw_par = (
+            valid_extents[k][bucket_of(int(ds[par]))][:s][:, par_fid]
             .max(axis=1)
-        )  # (S,)
+            for k in (0, 1)
+        )  # (S,) each
         nvy = np.where(np.minimum(vw_sm, w_child) > 0, vh_sm, 0)
         nvx = np.where(
             np.minimum(vh_par, hr_par)[:, None] > 0, vw_sm, 0
         )
-        return nvy, nvx
+        ovy = np.where(
+            np.arange(w_child)[None, None, :] < vw_sm[:, :, None],
+            vh_par[:, None, None], 0,
+        )
+        ovx = np.where(
+            np.arange(hr_par)[None, None, :] < vh_par[:, None, None],
+            vw_par[:, None, None], 0,
+        )
+        return nvy, nvx, ovy, ovx
 
     def combine(p: int, dt: torch.Tensor, ptr: torch.Tensor):
         """Mixture combine for one part, all parent mixtures l at once:
@@ -148,24 +164,29 @@ def tree_min_sum(
 
         for (_, _, step), parts in groups.items():
             hr_par, wr_par = grid_of(int(comp.parentid[parts[0]]))
-            scores, nvys, nvxs = [], [], []
+            scores, counts = [], []
             for p in parts:
                 sc = part_score(p)
                 if p in acc:
                     sc = sc + acc.pop(p)
                 scores.append(sc)
                 if not trainable:
-                    nvy, nvx = live_counts(
+                    counts.append(live_counts(
                         p, int(comp.parentid[p]), sc.shape[-1], hr_par
-                    )
-                    nvys.append(nvy)
-                    nvxs.append(nvx)
+                    ))
             score_g = torch.stack(scores)  # (G, S, M, H, W)
             pidx = torch.as_tensor(parts, device=dev)
-            nv_y = nv_x = None
+            nv_y = nv_x = ov_y = ov_x = None
             if not trainable:
-                nv_y = torch.as_tensor(np.stack(nvys), device=dev)
-                nv_x = torch.as_tensor(np.stack(nvxs), device=dev)
+                nvys, nvxs, ovys, ovxs = (np.stack(c) for c in zip(*counts))
+                nv_y = torch.as_tensor(nvys, device=dev)
+                nv_x = torch.as_tensor(nvxs, device=dev)
+                # the consumer extents also tell the DT that the shifts
+                # are integral, which K5 needs: decided here, on the
+                # host copy of the model
+                shifts = np.stack([comp.shift_x[parts], comp.shift_y[parts]])
+                if np.array_equal(shifts, np.round(shifts)):
+                    ov_y, ov_x = ovys, ovxs
             dt_g, ptr_g = shift_distance_transform_2d_packed(
                 score_g,
                 defw_all[pidx][:, None],  # (G, 1, M, 4)
@@ -177,6 +198,8 @@ def tree_min_sum(
                 valid_h=nv_y,
                 valid_w=nv_x,
                 differentiable=trainable,
+                out_valid_h=ov_y,
+                out_valid_w=ov_x,
             )
             for i, p in enumerate(parts):
                 msg, tbl = combine(p, dt_g[i], ptr_g[i])

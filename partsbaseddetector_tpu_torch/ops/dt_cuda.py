@@ -25,6 +25,14 @@ subgradient, with d = q - v* at the winning source v*,
 On a CUDA tensor it launches `csrc/dt1d_bwd.cu`, on a CPU tensor it runs
 `dt1d_bwd_plain`. shift, nvalid and aux get no gradient, and an output
 that is -inf (no live source) passes none on.
+
+`dt1d_window` replaces K5, `partsbaseddetector_tpu/ops/pallas_dt.py::
+_dt1d_pallas_window` (kernel `_make_window_kernel`): the same transform
+at step 1 with integral shifts, exact only at outputs i < out_valid[b, w]
+(the consumer's extent) and (-inf, 0) beyond, so that each output's scan
+may stop as soon as no farther source can win. On a CUDA tensor it
+launches `csrc/dt1d_window.cu`, on a CPU tensor it runs
+`dt1d_window_plain`.
 """
 
 from __future__ import annotations
@@ -35,10 +43,11 @@ import torch
 
 from .. import kernels
 
-# launches of the CUDA kernels by dt1d and by DT1dFunction's backward (the
-# plain versions do not count)
+# launches of the CUDA kernels by dt1d, by DT1dFunction's backward and by
+# dt1d_window (the plain versions do not count)
 launches = 0
 bwd_launches = 0
+window_launches = 0
 
 _NEG_INF = -math.inf
 
@@ -83,23 +92,36 @@ def dt1d_plain(
     return torch.cat(outs, dim=1), torch.cat(ptrs, dim=1)
 
 
-def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
-    global launches
-    bsz, h, w = src.shape
-    for name, t, dtype in (
-        ("src", src, torch.float32), ("a", a, torch.float32),
-        ("b", b, torch.float32), ("shift", shift, torch.float32),
-        ("nvalid", nvalid, torch.int32),
-    ) + ((("aux", aux, torch.int32),) if aux is not None else ()):
+def _check_args(what, src, named, aux=None):
+    """Raise unless every (name, tensor, dtype) of `named` is a
+    contiguous tensor of that dtype on src's device, aux (if any) has
+    src's shape and the maps fit one launch."""
+    if aux is not None:
+        named = named + (("aux", aux, torch.int32),)
+    for name, t, dtype in named:
         if t.device != src.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"dt1d: {name} must be a contiguous {dtype} tensor on "
+                f"{what}: {name} must be a contiguous {dtype} tensor on "
                 f"{src.device}, got {t.dtype} on {t.device}"
             )
     if aux is not None and aux.shape != src.shape:
-        raise ValueError(f"dt1d: aux shape {tuple(aux.shape)} != src shape")
-    if bsz > 65535:
-        raise ValueError(f"dt1d: {bsz} maps exceed one launch (65535)")
+        raise ValueError(f"{what}: aux shape {tuple(aux.shape)} != src shape")
+    if src.shape[0] > 65535:
+        raise ValueError(f"{what}: {src.shape[0]} maps exceed one launch (65535)")
+
+
+def _map_args(src, a, b, shift, nvalid):
+    return (
+        ("src", src, torch.float32), ("a", a, torch.float32),
+        ("b", b, torch.float32), ("shift", shift, torch.float32),
+        ("nvalid", nvalid, torch.int32),
+    )
+
+
+def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
+    global launches
+    bsz, h, w = src.shape
+    _check_args("dt1d", src, _map_args(src, a, b, shift, nvalid), aux)
     out = torch.empty((bsz, dlen, w), dtype=torch.float32, device=src.device)
     ptr = torch.empty((bsz, dlen, w), dtype=torch.int32, device=src.device)
     lib = kernels.library()
@@ -243,6 +265,23 @@ def dt1d(src, a, b, shift, dlen: int, step: int = 1, nvalid=None, aux=None,
     were broadcast along.
     Returns (out (..., dlen, W) f32, ptr (..., dlen, W) int32)."""
     batch_shape = src.shape[:-2]
+    w = src.shape[-1]
+    args = flatten_maps(src, a, b, shift, nvalid, aux)
+    if differentiable:
+        out, ptr = DT1dFunction.apply(*args[:5], dlen, step, args[5])
+    else:
+        out, ptr = _dt1d_fwd(*args[:5], dlen, step, args[5])
+    return (
+        out.reshape(*batch_shape, dlen, w),
+        ptr.reshape(*batch_shape, dlen, w),
+    )
+
+
+def flatten_maps(src, a, b, shift, nvalid, aux):
+    """(..., H, W) maps and their per-map parameters as one (B, H, W)
+    batch: (src, a, b, shift, nvalid, aux) with a/b/shift (B,) f32 and
+    nvalid (B,) int32 clamped to [0, H] (default H)."""
+    batch_shape = src.shape[:-2]
     h, w = src.shape[-2], src.shape[-1]
     bsz = math.prod(batch_shape)
     dev = src.device
@@ -251,16 +290,83 @@ def dt1d(src, a, b, shift, dlen: int, step: int = 1, nvalid=None, aux=None,
         x = torch.as_tensor(x, dtype=dtype, device=dev)
         return x.broadcast_to(batch_shape).reshape(bsz).contiguous()
 
-    a_ = per_map(a, torch.float32)
-    b_ = per_map(b, torch.float32)
-    s_ = per_map(shift, torch.float32)
-    nv = per_map(h if nvalid is None else nvalid, torch.int32).clamp(0, h)
-    src3 = src.reshape(bsz, h, w)
-    aux3 = None if aux is None else aux.reshape(bsz, h, w)
-    if differentiable:
-        out, ptr = DT1dFunction.apply(src3, a_, b_, s_, nv, dlen, step, aux3)
+    return (
+        src.reshape(bsz, h, w),
+        per_map(a, torch.float32),
+        per_map(b, torch.float32),
+        per_map(shift, torch.float32),
+        per_map(h if nvalid is None else nvalid, torch.int32).clamp(0, h),
+        None if aux is None else aux.reshape(bsz, h, w),
+    )
+
+
+def dt1d_window_plain(src, a, b, shift, nvalid, out_valid, dlen: int,
+                      aux=None):
+    """K5 in torch: `dt1d_plain` at step 1, then (-inf, 0) at every
+    output i >= out_valid[b, w]. src (B, H, W); a/b/shift (B,) f32;
+    nvalid (B,) int; out_valid (B, W) int (clamped to [0, dlen])."""
+    out, ptr = dt1d_plain(src, a, b, shift, nvalid, dlen, 1, aux)
+    i = torch.arange(dlen, device=src.device)[None, :, None]
+    dont_care = i >= out_valid.to(src.device).clamp(0, dlen)[:, None, :]
+    return (
+        out.masked_fill(dont_care, _NEG_INF),
+        ptr.masked_fill(dont_care, 0),
+    )
+
+
+def _dt1d_window_cuda(src, a, b, shift, nvalid, out_valid, dlen, aux):
+    global window_launches
+    bsz, h, w = src.shape
+    _check_args(
+        "dt1d_window", src,
+        _map_args(src, a, b, shift, nvalid)
+        + (("out_valid", out_valid, torch.int32),),
+        aux,
+    )
+    if out_valid.shape != (bsz, w):
+        raise ValueError(
+            f"dt1d_window: out_valid shape {tuple(out_valid.shape)} != {(bsz, w)}"
+        )
+    out = torch.empty((bsz, dlen, w), dtype=torch.float32, device=src.device)
+    ptr = torch.empty((bsz, dlen, w), dtype=torch.int32, device=src.device)
+    lib = kernels.library()
+    with torch.cuda.device(src.device):
+        rc = lib.pbd_dt1d_window_axis2_f32(
+            src.data_ptr(), aux.data_ptr() if aux is not None else None,
+            a.data_ptr(), b.data_ptr(), shift.data_ptr(), nvalid.data_ptr(),
+            out_valid.data_ptr(), out.data_ptr(), ptr.data_ptr(),
+            bsz, h, w, dlen,
+            torch.cuda.current_stream(src.device).cuda_stream,
+        )
+    kernels.check(rc, "dt1d_window kernel launch")
+    window_launches += 1
+    return out, ptr
+
+
+def dt1d_window(src, a, b, shift, dlen: int, out_valid, nvalid=None,
+                aux=None):
+    """The adaptive-window DT (K5) along axis -2 of src (..., H, W), at
+    step 1. Arguments as for `dt1d`, but shift must be integral (the
+    scan steps over integer displacements; the caller decides this on
+    the host), and out_valid (int, broadcastable to (..., W)) gives per
+    output column the number of rows that must be exact: rows at or
+    beyond it come back (-inf, 0). No gradient.
+    Returns (out (..., dlen, W) f32, ptr (..., dlen, W) int32)."""
+    batch_shape = src.shape[:-2]
+    w = src.shape[-1]
+    src3, a_, b_, s_, nv, aux3 = flatten_maps(src, a, b, shift, nvalid, aux)
+    ov = torch.as_tensor(out_valid, dtype=torch.int32, device=src.device)
+    ov = ov.broadcast_to((*batch_shape, w)).reshape(src3.shape[0], w)
+    ov = ov.clamp(0, dlen).contiguous()
+    if src.device.type == "cuda":
+        out, ptr = _dt1d_window_cuda(
+            src3.contiguous(), a_, b_, s_, nv, ov, dlen,
+            None if aux3 is None else aux3.contiguous(),
+        )
+    elif src.device.type == "cpu":
+        out, ptr = dt1d_window_plain(src3, a_, b_, s_, nv, ov, dlen, aux3)
     else:
-        out, ptr = _dt1d_fwd(src3, a_, b_, s_, nv, dlen, step, aux3)
+        raise ValueError(f"dt1d_window: no kernel for device {src.device}")
     return (
         out.reshape(*batch_shape, dlen, w),
         ptr.reshape(*batch_shape, dlen, w),

@@ -1,19 +1,22 @@
 """Forward pipeline: image -> root score maps + DP pointer tables.
 
 Port of `partsbaseddetector_tpu/pipeline.py` (`make_plan`,
-`root_scores`, `max_root_score`, `build_root_masks`) with the spatial
-engine: HOG pyramid -> part-filter responses -> valid-extent masking ->
+`fourier_spectra_args`, `depth_response_masks`, `root_scores`,
+`max_root_score`, `build_root_masks`): HOG pyramid -> part-filter
+responses -> valid-extent masking (and optional response gates) ->
 tree min-sum DP for every (bucket, component) pair.
 
-  - inference (params=None): the K2 kernel on the card for the
-    responses, -inf masking, the DT kernel (K1) without a backward;
+  - inference (params=None): the responses from the K2 kernel on the
+    card (spatial engine) or from cuFFT transforms around batched
+    matrix products (Fourier engine, with the filters' spectra cached
+    per image size), -inf masking, the DT kernels (K1, or K5 under
+    PBD_DT_WINDOW=1) without a backward;
   - training (params = {'filters', 'defs', 'biases'} torch tensors): the
     plain conv (`ops/conv.py::filter_responses`) under autograd, -1e10
     masking, and the DTs with K4's backward, so the root scores are
     differentiable in every pool. The HOG pyramid runs without a graph:
-    the image gets no gradient.
-
-Response gates (RGB-D) and the Fourier engine belong to later slices.
+    the image gets no gradient. The Fourier engine is not ported for
+    training.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from . import depth as depth_mod
 from .models.model import DeviceModel, PackedModel
-from .ops.conv import filter_responses
+from .ops.conv import fft_filter_spectra, filter_responses, filter_responses_fft
 from .ops.conv_cuda import filter_responses_infer
 from .ops.dp import tree_min_sum
 from .ops.pyramid import (
@@ -57,6 +61,60 @@ def make_plan(
     )
 
 
+def fourier_spectra_args(
+    packed: PackedModel, plan: PyramidPlan
+) -> List[np.ndarray]:
+    """Host conjugate filter spectra, one (2, feat_h, wf, C, F) f32
+    array per bucket, for root_scores(fft_spectra=...) once on the
+    device (the detector uploads them once per image size)."""
+    return [
+        fft_filter_spectra(packed.filters, b.feat_h, b.feat_w)
+        for b in plan.buckets
+    ]
+
+
+def depth_response_masks(
+    depth: torch.Tensor, plan: PyramidPlan, spec, gate
+) -> List[torch.Tensor]:
+    """Per-bucket plausible-depth response gates, (S_b, Hr, Wr) bool on
+    depth's device: True where the sampled depth d is within
+    gate.tolerance * z of the scale's expected depth
+    z = gate.fx * gate.object_width_m / box_scale, or unknown (<= 0 or
+    not finite). depth: (H, W) f32 metres. The sample indices are the
+    host's `depth.gate_sample_indices`, so the mask equals the host
+    predictor `depth.depth_level_mask` on every scale's grid; d and z
+    are compared in f32."""
+    h_im, w_im = plan.imsize
+    dh, dw = depth.shape
+    off_x = -1 if spec.border == "cpp" else -spec.padx
+    off_y = -1 if spec.border == "cpp" else -spec.pady
+    dev = depth.device
+    masks: List[torch.Tensor] = []
+    for bucket in plan.buckets:
+        boxes = [plan.scales[s].box_scale for s in bucket.scale_indices]
+        iy = np.stack([
+            depth_mod.gate_sample_indices(bucket.resp_h, off_y, bs, h_im, dh)
+            for bs in boxes
+        ])  # (S, Hr)
+        ix = np.stack([
+            depth_mod.gate_sample_indices(bucket.resp_w, off_x, bs, w_im, dw)
+            for bs in boxes
+        ])  # (S, Wr)
+        z = torch.as_tensor(
+            [gate.fx * gate.object_width_m / bs for bs in boxes],
+            dtype=torch.float32, device=dev,
+        )[:, None, None]
+        iy_t = torch.as_tensor(iy, dtype=torch.long, device=dev)
+        ix_t = torch.as_tensor(ix, dtype=torch.long, device=dev)
+        sampled = depth[iy_t[:, :, None], ix_t[:, None, :]]
+        masks.append(
+            ((sampled - z).abs() <= gate.tolerance * z)
+            | (sampled <= 0)
+            | ~torch.isfinite(sampled)
+        )
+    return masks
+
+
 def root_scores(
     im: torch.Tensor,
     packed: PackedModel,
@@ -66,6 +124,8 @@ def root_scores(
     engine: str = "spatial",
     with_tables: bool = True,
     remat: bool = False,
+    response_masks: Optional[List[torch.Tensor]] = None,
+    fft_spectra: Optional[List[torch.Tensor]] = None,
 ) -> List[BucketScores]:
     """Run HOG pyramid -> responses -> tree DP for every (bucket,
     component). im: (H, W, 3) on dmodel's device, any real dtype (cast
@@ -74,28 +134,52 @@ def root_scores(
     module docstring). with_tables=False drops the pointer tables.
     remat=True (with params, without tables) recomputes the DP block in
     the backward pass instead of keeping its intermediates
-    (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`)."""
-    if engine == "fourier":
-        raise NotImplementedError("the Fourier engine is not ported yet")
-    if engine != "spatial":
+    (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`).
+    engine: "spatial" or "fourier" (inference only). fft_spectra
+    (optional, Fourier): fourier_spectra_args' arrays as tensors on the
+    device; without them they are computed (and memoized) on the host
+    and uploaded here. response_masks (optional): one (S_b, Hr, Wr)
+    bool tensor per bucket (depth_response_masks), applied to every
+    filter; False cells take the masking value, as outside the valid
+    extents."""
+    if engine not in ("spatial", "fourier"):
         raise ValueError(f"unknown conv engine: {engine}")
+    if engine == "fourier" and params is not None:
+        raise NotImplementedError(
+            "training with the Fourier engine is not ported yet"
+        )
     spec = packed.spec
     with torch.no_grad():
         feats = build_pyramid_features(im.to(torch.float32), plan, spec)
+    if engine == "fourier" and fft_spectra is None:
+        fft_spectra = [
+            torch.as_tensor(sp, device=im.device)
+            for sp in fourier_spectra_args(packed, plan)
+        ]
 
     neg = -math.inf if params is None else -1e10
     resps: List[torch.Tensor] = []
     vhs: List[np.ndarray] = []
     vws: List[np.ndarray] = []
     for b, bucket in enumerate(plan.buckets):
-        if params is None:
-            resp = filter_responses_infer(feats[b], dmodel.filters)
-        else:
+        if params is not None:
             resp = filter_responses(feats[b], params["filters"])
+        elif engine == "fourier":
+            resp = filter_responses_fft(
+                feats[b], dmodel.filters, fft_spectra[b]
+            )
+        else:
+            resp = filter_responses_infer(feats[b], dmodel.filters)
         vh, vw = response_valid_extents(
             plan, bucket, packed.filter_sizes, spec.border
         )
-        resps.append(mask_responses(resp, vh, vw, neg))
+        resp = mask_responses(resp, vh, vw, neg)
+        if response_masks is not None:
+            resp = torch.where(
+                response_masks[b][..., None], resp,
+                torch.full((), neg, device=resp.device),
+            )
+        resps.append(resp)
         vhs.append(vh)
         vws.append(vw)
 

@@ -6,7 +6,11 @@ kernels): without one it skips. On the card, run
 
 The kernels are held to: the DT bit for bit (values, and pointers at
 live outputs); the conv within 1e-5 * sum|x*w|; the DT's backward (K4)
-within 1e-5 * sum|g| per source and 1e-5 * sum|g*d^2|, sum|g*d| per map.
+within 1e-5 * sum|g| per source and 1e-5 * sum|g*d^2|, sum|g*d| per map;
+the adaptive-window DT (K5) bit for bit against its plain version, and
+against K1 inside out_valid. Detect with the window DT gives the default
+detect's candidates bit for bit; the Fourier and RGB-D detectors give the
+CPU path's candidates.
 """
 
 import os
@@ -154,3 +158,107 @@ def test_dt_autograd_on_cuda_matches_cpu(cuda):
         grads.append([t.grad.cpu() for t in leaves])
     for x, y in zip(*grads):
         torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("aux", [False, True])
+@pytest.mark.parametrize(
+    "h,w,dlen,ints,ab",
+    [
+        (40, 50, 37, False, None),  # y pass
+        (50, 40, 45, False, None),  # x pass shape
+        (24, 40, 24, True, None),  # integer ties
+        (30, 33, 30, False, (0.0, 0.0)),  # flat penalty: exitable
+        (30, 33, 30, False, (0.0, 0.5)),  # linear penalty: full scan
+        (126, 166, 126, False, None),  # person26 VGA finest bucket
+    ],
+)
+def test_window_kernel_matches_plain_and_k1(cuda, h, w, dlen, ints, ab, aux):
+    from partsbaseddetector_tpu_torch.ops import dt_cuda
+
+    gen = torch.Generator().manual_seed(h * w + dlen)
+    bsz = 9
+    if ints:
+        src = torch.randint(-4, 5, (bsz, h, w), generator=gen).float()
+        a = -torch.randint(1, 3, (bsz,), generator=gen).float()
+        b = torch.randint(-2, 3, (bsz,), generator=gen).float()
+    else:
+        src = torch.randn((bsz, h, w), generator=gen) * 3
+        a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
+        b = 0.3 * torch.randn((bsz,), generator=gen)
+    if ab is not None:
+        a.fill_(ab[0])
+        b.fill_(ab[1])
+    nv = torch.randint(0, h + 1, (bsz,), generator=gen, dtype=torch.int32)
+    nv[0] = h
+    nv[1] = 0  # an all-dead map
+    src = torch.where(torch.arange(h)[None, :, None] < nv[:, None, None], src, -torch.inf)
+    sh = torch.randint(-3, 4, (bsz,), generator=gen).float()
+    ov = torch.randint(0, dlen + 1, (bsz, w), generator=gen, dtype=torch.int32)
+    ov[:, 0], ov[:, 1] = 0, dlen
+    ax = torch.randint(0, 4096, (bsz, h, w), generator=gen, dtype=torch.int32) if aux else None
+    src, a, b, sh, nv, ov = (t.to(cuda) for t in (src, a, b, sh, nv, ov))
+    ax = ax.to(cuda) if aux else None
+    before = dt_cuda.window_launches
+    got_v, got_p = dt_cuda.dt1d_window(src, a, b, sh, dlen, ov, nvalid=nv, aux=ax)
+    assert dt_cuda.window_launches == before + 1
+    want_v, want_p = dt_cuda.dt1d_window_plain(src, a, b, sh, nv, ov, dlen, ax)
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_p, want_p)
+    k1_v, k1_p = dt_cuda.dt1d(src, a, b, sh, dlen, 1, nvalid=nv, aux=ax)
+    inside = torch.arange(dlen, device=cuda)[None, :, None] < ov[:, None, :]
+    assert torch.equal(got_v[inside], k1_v[inside])
+    assert torch.equal(got_p[inside], k1_p[inside])
+    assert bool((got_v[~inside] == -torch.inf).all()) and bool((got_p[~inside] == 0).all())
+
+
+def _same_candidates(got, want, score_tol=0.0, box_tol=0.0):
+    assert len(got) == len(want) > 0
+    for x, y in zip(got, want):
+        assert abs(x.score - y.score) <= score_tol
+        assert float(np.abs(x.parts - y.parts).max()) <= box_tol
+        assert x.component == y.component
+        np.testing.assert_array_equal(x.mixtures, y.mixtures)
+
+
+def _person_frame():
+    from partsbaseddetector_tpu_torch import make_person_like_model
+
+    model = make_person_like_model()
+    model.thresh = -1e9
+    im = (np.random.RandomState(0).rand(120, 160, 3) * 255).astype(np.uint8)
+    return model, im
+
+
+def test_window_detect_equals_default_on_cuda(cuda, monkeypatch):
+    from partsbaseddetector_tpu_torch import PartsBasedDetector
+    from partsbaseddetector_tpu_torch.ops import dt_cuda
+
+    model, im = _person_frame()
+    det = PartsBasedDetector(model, max_detections=32, buckets_per_octave=2, device=cuda)
+    want = det.detect(im)
+    monkeypatch.setenv("PBD_DT_WINDOW", "1")
+    before = dt_cuda.window_launches
+    got = det.detect(im)
+    assert dt_cuda.window_launches > before
+    _same_candidates(got, want)
+
+
+@pytest.mark.parametrize("kind", ["fourier", "rgbd"])
+def test_fourier_and_rgbd_detect_on_cuda_match_cpu(cuda, kind):
+    from partsbaseddetector_tpu_torch import PartsBasedDetector
+    from partsbaseddetector_tpu_torch.depth import DepthGate
+
+    model, im = _person_frame()
+    kw = dict(max_detections=16, buckets_per_octave=2)
+    depth = None
+    if kind == "fourier":
+        kw["conv_engine"] = "fourier"
+    else:
+        kw.update(device_depth_filter=True,
+                  depth_gate=DepthGate(object_width_m=0.6, fx=10.0, tolerance=0.5))
+        depth = ((1.0 + np.random.RandomState(1).rand(120, 160)) * 1000).astype(np.uint16)
+    got = PartsBasedDetector(model, device=cuda, **kw).detect_dense(im, depth)
+    want = PartsBasedDetector(model, device="cpu", **kw).detect_dense(im, depth)
+    if depth is not None:
+        np.testing.assert_array_equal(got.depth_keep, want.depth_keep)
+    _same_candidates(got.to_candidates(), want.to_candidates(), 1e-4, 1e-3)

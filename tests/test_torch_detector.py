@@ -110,26 +110,28 @@ def test_npz_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs,error",
     [
-        dict(conv_engine="fourier"),
-        dict(dtype=torch.bfloat16),
-        dict(rerank_fp32=True),
-        dict(depth_gate=object()),
-        dict(device_depth_filter=True),
-        dict(nms_overlap=0.5),
+        (dict(conv_engine="winograd"), ValueError),
+        (dict(dtype=torch.bfloat16), NotImplementedError),
+        (dict(rerank_fp32=True), NotImplementedError),
+        (dict(border_mode="same"), ValueError),
+        (dict(dtype=torch.float16), NotImplementedError),
+        (dict(nms_overlap=0.5), NotImplementedError),
     ],
 )
-def test_options_outside_the_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+def test_options_outside_the_slice_raise(kwargs, error):
+    with pytest.raises(error):
         PartsBasedDetector(**kwargs)
 
 
 def test_depth_input_raises_and_tf32_is_off():
+    """A depth map must be (H, W); the RGB-D options turn TF32 off like
+    every detector."""
     model = model_from_jax(make_synthetic_model(nparts=3, nmix=2, seed=1))
-    det = PartsBasedDetector(model)
+    det = PartsBasedDetector(model, device_depth_filter=True)
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     im = np.zeros((48, 48, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
-        det.detect(im, depth=np.ones((48, 48), np.float32))
+    with pytest.raises(ValueError):
+        det.detect(im, depth=np.ones((48, 48, 3), np.float32))
