@@ -18,12 +18,19 @@ script exits non-zero without the final line):
                  a person26 VGA bucket, |err| <= 1e-5 * sum|x*w|
   5. golden      tests/fixtures/golden_model.npz through the port on the
                  card: 15 candidates, |dscore| < 2e-3, boxes within 5e-2
-  6. person26    the 26-part model at 480x640: both kernels launched,
+  6. person26    the 26-part model at 480x640: K1, K2 and T2 launched,
                  finite scores, identical candidates on two runs, the
                  same candidates as the CPU path at 120x160, and the
                  steady-state ms/image (median after warm-up)
   7. profile     torch.profiler over person26 VGA: device ms per image
                  by kernel family, the busiest kernels, the idle share
+     transpose   T2 (the x pass's transposes) against its plain version,
+                 bit for bit, f32 and int32 (edge shapes, the person26
+                 and Pallas-probe shapes, more than 65,535 maps, every
+                 transpose input of one detect and of one microbatch-8
+                 program), its gradient; ms and GB/s at (80, 126, 166)
+                 beside the plain call and the bound, and one detect's
+                 transposes summed
   8. dt1d_bwd    the DT's backward kernel (K4) against dt1d_bwd_plain on
                  the card: g_src within 1e-5 * sum|g| per source, g_a and
                  g_b within 1e-5 * sum|g*d^2| and sum|g*d| per map (y pass,
@@ -57,6 +64,21 @@ script exits non-zero without the final line):
                  device depth filter, seeded uint16 depth): K1 and K2
                  launched, the CPU path's candidates and keep mask on a
                  120x160 crop, ms/image
+ 14. serving     the JAX bench's config 4 set-up (64 distinct uint8 VGA
+                 frames, person26): detect_many at microbatch 8 launches
+                 K1, K2 and T2; its candidates and the pipelined path's
+                 (prefetch 6, top 64) equal detect's on 8 frames within
+                 1e-5 * max(1, |score|), parts 1e-4; sync ms/image,
+                 pipelined and microbatch-8 images/s in turns; device ops
+                 and busy ms per image at microbatch 1 and 8 (profiles);
+                 the peak device memory at microbatch 8
+ 15. stream      detect_stream over 12 VGA frames, RGB and (rgb, uint16
+                 depth) mixed, gate and device filter on, lookahead 4,
+                 2 workers, readback_batch 3: detect's candidates in order
+ 16. nms         person26 with nms_overlap=0.3: the CPU path's candidates
+                 at 120x160, the device keep mask equal to the host
+                 part_nms on 8 VGA frames, part_nms_device device ms
+                 (profiler) and event ms per image at batch 1 and 8
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -83,6 +105,10 @@ CONV_RTOL = 1e-5
 DT_BWD_RTOL = 1e-5
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
 DEVICE = "cuda"
+# the H100 SXM's published peaks at its 700 W limit: HBM3 bytes/s and
+# FP32 (non-tensor-core) operations/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(phase: str, **fields) -> None:
@@ -110,6 +136,35 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the HBM rate and its operations over the FP32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def dt_work(src, nvalid, dlen, aux=None):
+    """Bytes and operations that one pass of the function K1 computes
+    needs on these inputs (not what the brute-force kernel spends): the
+    generalized DT is O(n) per column by the lower-envelope scan
+    (partsbaseddetector_tpu/ops/reference.py::dt1d_envelope), each live
+    source entering and leaving the envelope once (~10 FP32 operations,
+    the parabola intersection) and each output reading it once (~5);
+    src, aux and the per-map parameters are read, values and pointers
+    written."""
+    bsz, _, w = src.shape
+    live = float(nvalid.clamp(0, src.shape[1]).sum())
+    ops = (10.0 * live + 5.0 * bsz * dlen) * w
+    return nbytes(src, aux) + 16 * bsz + 8 * bsz * dlen * w, ops
 
 
 def check_dt(torch, dt_cuda, gen) -> dict:
@@ -175,10 +230,14 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     plain = cuda_ms(lambda: dt_cuda.dt1d_plain(*yargs, 126, 1), reps=3)
     plain += cuda_ms(lambda: dt_cuda.dt1d_plain(*xargs, 166, 1, aux=xaux),
                      reps=3)
+    work = [dt_work(yargs[0], yargs[4], 126), dt_work(xargs[0], xargs[4], 166, xaux)]
+    bnd = bound(sum(w[0] for w in work), sum(w[1] for w in work))
     log("dt1d", cases=len(errs), exact=True, max_abs_err=max(errs),
         shape="y(80,126,166)+x_aux(80,166,126)", ms=f"{ms:.4f}",
-        plain_ms=f"{plain:.4f}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain}
+        plain_ms=f"{plain:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
+        bound_by=bnd["bound_by"], library_ms=None)
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain, **bnd,
+            "library_ms": None}
 
 
 def check_conv(torch, conv, conv_cuda, gen) -> dict:
@@ -200,12 +259,25 @@ def check_conv(torch, conv, conv_cuda, gen) -> dict:
         raise AssertionError(f"conv error exceeds 1e-5*sum|x*w| (x{ratio:.3g})")
     ms = cuda_ms(lambda: conv_cuda.filter_responses_infer(feat, filt))
     plain = cuda_ms(lambda: conv.filter_responses(feat, filt))
+    # the library call: cuDNN's correlation on the same shapes, TF32 off
+    x_nchw = feat.permute(0, 3, 1, 2).contiguous()
+    w_nchw = filt.permute(0, 3, 1, 2).contiguous()
+    conv2d = torch.nn.functional.conv2d
+    lib_err = (conv2d(x_nchw, w_nchw).permute(0, 2, 3, 1) - want).abs()
+    if not bool((lib_err <= CONV_RTOL * scale).all()):
+        raise AssertionError("conv: torch's conv2d disagrees with the plain version")
+    library = cuda_ms(lambda: conv2d(x_nchw, w_nchw))
+    s_, oh, ow, f_ = want.shape
+    k = filt.shape[1] * filt.shape[2] * filt.shape[3]
+    bnd = bound(nbytes(feat, filt, want), 2.0 * s_ * oh * ow * k * f_)
     max_err = err.max().item()
     log("conv", shape="(5,130,170,32)x(104,5,5,32)",
         max_abs_err=f"{max_err:.3e}", bound="1e-5*sum|x*w|",
         worst_err_over_bound=f"{ratio:.3g}", ms=f"{ms:.4f}",
-        plain_ms=f"{plain:.4f}")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain}
+        plain_ms=f"{plain:.4f}", library_conv2d_ms=f"{library:.4f}",
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"])
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, **bnd,
+            "library_ms": library}
 
 
 def check_golden(np, pbd) -> None:
@@ -233,7 +305,7 @@ def same_candidates(a, b, score_tol=0.0, box_tol=0.0) -> bool:
     )
 
 
-def check_person26(torch, np, pbd, dt_cuda, conv_cuda, gen, card) -> tuple:
+def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
     model = pbd.make_person_like_model()
     bpo = 2 if model.interval % 2 == 0 else 1
     im = torch.randint(0, 256, (480, 640, 3), generator=gen,
@@ -241,9 +313,11 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, gen, card) -> tuple:
     det = pbd.PartsBasedDetector(model, buckets_per_octave=bpo, device=DEVICE)
     dt_cuda.launches = 0
     conv_cuda.launches = 0
+    tc.launches = 0
     first = det.detect(im)
     torch.cuda.synchronize()
-    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches}
+    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches,
+              "transpose": tc.launches}
     if min(counts.values()) <= 0:
         raise AssertionError(f"person26: a kernel was not launched: {counts}")
     if not first or not all(np.isfinite(c.score) for c in first):
@@ -271,10 +345,45 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, gen, card) -> tuple:
     log("person26", imsize="480x640", buckets_per_octave=bpo,
         candidates=len(first), top_score=f"{first[0].score:.4f}",
         dt1d_launches=counts["dt1d"], conv_launches=counts["conv"],
+        transpose_launches=counts["transpose"],
         deterministic=True, cpu_match_120x160=f"{len(want)} candidates",
         ms_per_image_median=f"{ms:.3f}",
         ms_all=",".join(f"{t:.3f}" for t in times), card=f"'{card}'")
     return counts, ms, det, im
+
+
+# kernel families of a profile, by a piece of the kernel's name (first
+# match wins: the window and backward DT names contain the forward's)
+FAMILIES = (("dt1d_window", "dt1d_window"), ("dt1d_bwd", "dt1d_axis2_bwd"),
+            ("dt1d", "dt1d_axis2"), ("conv", "conv_fp32"),
+            ("transpose", "transpose32"), ("fft", "fft"))
+
+
+def device_profile(torch, prof, per: float = 1.0) -> dict:
+    """Device ms of a profiled window by kernel family, divided by `per`
+    (images or steps), with the busy total, the device ops and the
+    busiest kernels."""
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    kernels = [
+        # device-side events only (kernels, copies): the aten ops that
+        # launched them carry the same time again
+        e for e in prof.key_averages()
+        if dev_us(e) and e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    families = {k: 0.0 for k, _ in FAMILIES}
+    families["other"] = 0.0
+    for e in kernels:
+        key = next((k for k, name in FAMILIES if name in e.key.lower()), "other")
+        families[key] += dev_us(e) / 1e3 / per
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    return {
+        "families": families, "busy": sum(families.values()),
+        "ops": sum(e.count for e in kernels) / per,
+        "top": " | ".join(
+            f"{e.key[:48]} {dev_us(e) / 1e3 / per:.3f}ms x{e.count / per:g}"
+            for e in top),
+    }
 
 
 def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
@@ -292,34 +401,13 @@ def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
             det.detect(im)
         torch.cuda.synchronize()
     profiled = (time.perf_counter() - t0) * 1e3 / reps
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    kernels = [
-        # device-side events only (kernels, copies): the aten ops that
-        # launched them carry the same time again
-        e for e in prof.key_averages()
-        if dev_us(e) and e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    families = {"dt1d": 0.0, "dt1d_window": 0.0, "conv": 0.0, "fft": 0.0,
-                "other": 0.0}
-    for e in kernels:
-        key = next((k for k, name in (("dt1d_window", "dt1d_window"),
-                                      ("dt1d", "dt1d_axis2"),
-                                      ("conv", "conv_fp32"),
-                                      ("fft", "fft")) if name in e.key.lower()),
-                   "other")
-        families[key] += dev_us(e) / 1e3 / reps
-    busy = sum(families.values())
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    got = device_profile(torch, prof, reps)
     log(phase, profiled_wall_ms_per_image=f"{profiled:.3f}",
-        device_busy_ms_per_image=f"{busy:.3f}",
-        idle_share_vs_unprofiled=f"{max(0.0, 1 - busy / wall_ms):.3f}",
-        device_ops_per_image=sum(e.count for e in kernels) // reps,
-        **{f"{k}_ms": f"{v:.3f}" for k, v in families.items()},
-        top=" | ".join(
-            f"{e.key[:48]} {dev_us(e) / 1e3 / reps:.3f}ms x{e.count // reps}"
-            for e in top
-        ))
+        device_busy_ms_per_image=f"{got['busy']:.3f}",
+        idle_share_vs_unprofiled=f"{max(0.0, 1 - got['busy'] / wall_ms):.3f}",
+        device_ops_per_image=f"{got['ops']:.0f}",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in got["families"].items()},
+        top=got["top"])
 
 
 def check_dt_bwd(torch, dt_cuda, gen) -> dict:
@@ -380,11 +468,20 @@ def check_dt_bwd(torch, dt_cuda, gen) -> dict:
     ms += cuda_ms(lambda: dt_cuda.dt1d_bwd(*xargs), reps=20)
     plain = cuda_ms(lambda: dt_cuda.dt1d_bwd_plain(*yargs), reps=20)
     plain += cuda_ms(lambda: dt_cuda.dt1d_bwd_plain(*xargs), reps=20)
+    # per output: d, g*d, g*d*d and three sums, ~6 FP32 operations; g,
+    # out, ptr and shift read, g_src, g_a and g_b written
+    moved, ops = 0, 0.0
+    for g, _, _, shift, h, _, _ in (yargs, xargs):
+        moved += 3 * nbytes(g) + 3 * nbytes(shift) + nbytes(g) // g.shape[1] * h
+        ops += 6.0 * g.numel()
+    bnd = bound(moved, ops)
     log("dt1d_bwd", cases=7, max_abs_err=f"{max(errs):.3e}",
         bound="1e-5*sum|g| per source, 1e-5*sum|g*d^2|,sum|g*d| per map",
         shape="y(320,66,86)+x_aux(320,86,66)", ms=f"{ms:.4f}",
-        plain_ms=f"{plain:.4f}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain}
+        plain_ms=f"{plain:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
+        bound_by=bnd["bound_by"], library_ms=None)
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain, **bnd,
+            "library_ms": None}
 
 
 def train_setup(np, torch, pbd_train, packed, imsize, batch, seed):
@@ -475,29 +572,6 @@ def check_train(torch, np, pbd, pbd_train, dt_cuda, card) -> dict:
             "step_ms": step_ms, "images_per_s": images_per_s}
 
 
-def device_ms(torch, prof) -> dict:
-    """Device ms of a profiled window by family: K4's backward kernel,
-    the DT forward kernel, everything else; plus the ops list."""
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    kernels = [
-        e for e in prof.key_averages()
-        if dev_us(e) and e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    families = {"dt1d_bwd": 0.0, "dt1d": 0.0, "other": 0.0}
-    for e in kernels:
-        key = "dt1d_bwd" if "dt1d_axis2_bwd" in e.key else (
-            "dt1d" if "dt1d_axis2" in e.key else "other")
-        families[key] += dev_us(e) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    return {
-        "families": families, "busy": sum(families.values()),
-        "ops": sum(e.count for e in kernels),
-        "top": " | ".join(
-            f"{e.key[:48]} {dev_us(e) / 1e3:.3f}ms x{e.count}" for e in top),
-    }
-
-
 def profile_train_step(torch, ctx, wall_ms: float) -> None:
     """torch.profiler over one train step (device busy ms, the idle
     share against the unprofiled median step, the DT kernels' ms), then
@@ -511,18 +585,18 @@ def profile_train_step(torch, ctx, wall_ms: float) -> None:
     with profile(activities=acts) as prof:
         step(params, opt, imgs, masks, labels)
         torch.cuda.synchronize()
-    whole = device_ms(torch, prof)
+    whole = device_profile(torch, prof)
     with profile(activities=acts) as prof:
         for i, y in enumerate(labels):
             loss_fn.margin_violation(params, imgs[i], float(y), [m[i] for m in masks])
         torch.cuda.synchronize()
-    fwd = device_ms(torch, prof)
+    fwd = device_profile(torch, prof)
     log("train_profile", device_busy_ms_per_step=f"{whole['busy']:.3f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - whole['busy'] / wall_ms):.3f}",
-        device_ops_per_step=whole["ops"],
+        device_ops_per_step=f"{whole['ops']:.0f}",
         forward_device_ms=f"{fwd['busy']:.3f}",
         backward_and_update_device_ms=f"{whole['busy'] - fwd['busy']:.3f}",
-        forward_ops=fwd["ops"],
+        forward_ops=f"{fwd['ops']:.0f}",
         **{f"{k}_ms": f"{v:.3f}" for k, v in whole["families"].items()},
         top=whole["top"])
 
@@ -658,10 +732,19 @@ def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
     ms, k1_ms, plain_ms = min(ms), min(k1_ms), min(plain_ms)
     inside = sum(c[0] for c in cases[-2:])
     dont = sum(c[1] for c in cases[-2:])
+    # the early exit makes the scan data-dependent and unobservable from
+    # here: count the least work, each exact output evaluating at least
+    # one source (~5 operations); inputs read, outputs written once
+    moved = sum(nbytes(a[0], a[5], a[7]) + 16 * a[0].shape[0]
+                + 8 * a[0].shape[0] * a[6] * a[0].shape[2] for a in (yargs, xargs))
+    bnd = bound(moved, 5.0 * inside)
     log("dt1d_window", cases=len(cases), exact=True, max_abs_err=0.0,
         shape=shape, p26_outputs_exact=inside, p26_outputs_dont_care=dont,
-        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms}
+        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+        library_ms=None)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
+            **bnd, "library_ms": None}
 
 
 def timed_detect(torch, det, im, depth=None) -> float:
@@ -747,7 +830,7 @@ def check_fourier(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> tuple:
         times.append(timed_detect(torch, det, im))
         spatial_times.append(timed_detect(torch, spatial, im))
     small = im[:120, :160]
-    cpu = pbd.PartsBasedDetector(model, conv_engine="fourier",
+    cpu = pbd.PartsBasedDetector(model, conv_engine="fourier", device="cpu",
                                  buckets_per_octave=2, max_detections=32)
     card_det = pbd.PartsBasedDetector(model, conv_engine="fourier",
                                       max_detections=32, **kw)
@@ -790,7 +873,7 @@ def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
     kept = len(det.detect(im, depth16))
     times = [timed_detect(torch, det, im, depth16) for _ in range(7)]
     small, dsmall = im[:120, :160], depth16[:120, :160]
-    cpu = pbd.PartsBasedDetector(model, **kw)
+    cpu = pbd.PartsBasedDetector(model, device="cpu", **kw)
     got, want = det.detect_dense(small, dsmall), cpu.detect_dense(small, dsmall)
     if not np.array_equal(got.depth_keep, want.depth_keep):
         raise AssertionError("rgbd: keep masks differ from the CPU path's at 120x160")
@@ -804,6 +887,281 @@ def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
         ms_all=",".join(f"{t:.3f}" for t in times),
         cpu_match_120x160=f"{int(want.depth_keep.sum())} of {len(want.depth_keep)} kept",
         card=f"'{card}'")
+
+
+def capture_transposes(run, dtm) -> list:
+    """The inputs of every x-pass transpose of run() (the y pass's values
+    and pointers, the x pass's values and pointers), recorded through
+    ops/distance_transform.py's transpose_last2."""
+    calls = []
+    orig = dtm.transpose_last2
+
+    def record(x):
+        calls.append(x)
+        return orig(x)
+
+    dtm.transpose_last2 = record
+    try:
+        run()
+    finally:
+        dtm.transpose_last2 = orig
+    return calls
+
+
+def check_transpose(torch, np, tc, dtm, gen, det, im) -> dict:
+    """T2 against transpose_last2_plain on the card, bit for bit, f32 and
+    int32, at edge shapes, the DT x pass's person26 shapes, the Pallas
+    probe's three shapes and more than 65,535 maps, and on every
+    transpose input of one person26 VGA detect and of one microbatch-8
+    program (maps of 8 images folded together); its gradient; its time
+    and the plain call's at (80, 126, 166) f32, and the summed time of
+    every transpose of one detect, kernel against plain."""
+    dev = DEVICE
+
+    def exact(x, what):
+        got, want = tc.transpose_last2(x), tc.transpose_last2_plain(x)
+        if got.shape != want.shape or not torch.equal(
+                got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"transpose {what}: differs from plain")
+
+    shapes = [(1, 1, 1), (3, 33, 31), (80, 126, 166), (80, 166, 126),
+              (160, 168, 128), (160, 166, 126), (520, 128, 104), (70000, 3, 2)]
+    for shape in shapes:
+        for dtype in (torch.float32, torch.int32):
+            if dtype == torch.float32:
+                x = torch.randn(shape, generator=gen)
+                x.view(-1)[::5] = -torch.inf
+            else:
+                x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                                  dtype=torch.int32)
+            exact(x.to(dev), f"{shape} {dtype}")
+    caps = capture_transposes(lambda: det.detect(im), dtm)
+    frames = [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+              for i in range(8)]
+    caps8 = capture_transposes(lambda: det.detect_many(frames, microbatch=8), dtm)
+    for i, c in enumerate(caps + caps8):
+        exact(c, f"captured #{i} {tuple(c.shape)} {c.dtype}")
+    if not caps or not caps8:
+        raise AssertionError("transpose: a detect ran no x-pass transpose")
+    maps = lambda cs: max(c.numel() // (c.shape[-2] * c.shape[-1]) for c in cs)
+    n8, most_maps = len(caps8), f"{maps(caps)} detect, {maps(caps8)} microbatch-8"
+    del caps8
+    x = torch.randn((80, 126, 166), generator=gen).to(dev).requires_grad_()
+    cot = torch.randn((80, 166, 126), generator=gen).to(dev)
+    (tc.transpose_last2(x) * cot).sum().backward()
+    if not torch.equal(x.grad, tc.transpose_last2_plain(cot)):
+        raise AssertionError("transpose: the gradient differs from the plain one")
+
+    x = x.detach()
+    ms, plain = [], []
+    for _ in range(3):  # in turns
+        ms.append(cuda_ms(lambda: tc.transpose_last2(x), reps=50))
+        plain.append(cuda_ms(lambda: tc.transpose_last2_plain(x), reps=50))
+    ms, plain = min(ms), min(plain)
+    bnd = bound(2 * nbytes(x), 0.0)
+    # one detect's transposes, device time from the profiler (events
+    # around 200 launches would time the host's launch loop)
+    det_ms = profile_device(
+        torch, lambda: [tc.transpose_last2(c) for c in caps], 1)["busy"]
+    det_plain = profile_device(
+        torch, lambda: [tc.transpose_last2_plain(c) for c in caps], 1)["busy"]
+    det_bound = bound(2 * nbytes(*caps), 0.0)["bound_ms"]
+    log("transpose", cases=2 * len(shapes), exact=True, gradient_exact=True,
+        captured_exact=f"{len(caps)} detect + {n8} microbatch-8",
+        most_maps_per_transpose=most_maps,
+        shape="(80,126,166) f32", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+        gb_per_s=f"{2 * nbytes(x) / ms / 1e6:.1f}",
+        plain_gb_per_s=f"{2 * nbytes(x) / plain / 1e6:.1f}",
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+        per_detect_transposes=len(caps), per_detect_device_ms=f"{det_ms:.4f}",
+        per_detect_plain_device_ms=f"{det_plain:.4f}",
+        per_detect_bound_ms=f"{det_bound:.4f}")
+    # the plain version is the library call: .transpose(-1, -2).contiguous()
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, **bnd,
+            "library_ms": plain}
+
+
+def close_candidates(a, b) -> bool:
+    """The serving tolerance: |dscore| <= 1e-5 * max(1, |score|), parts
+    within 1e-4, components and mixtures identical."""
+    return len(a) == len(b) and all(
+        abs(x.score - y.score) <= 1e-5 * max(1.0, abs(y.score))
+        and float(abs(x.parts - y.parts).max()) <= 1e-4
+        and x.component == y.component
+        and (x.mixtures == y.mixtures).all()
+        for x, y in zip(a, b)
+    )
+
+
+def profile_device(torch, run, per: int) -> dict:
+    """device_profile of one torch.profiler pass over run(), per `per`
+    images."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_profile(torch, prof, per)
+
+
+def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
+    """The JAX bench's config 4 set-up (bench.py:654-657): 64 distinct
+    uint8 480x640 frames clip(im + i), person26, buckets_per_octave=2,
+    f32. The batched program (detect_many, microbatch 8) is this phase's
+    main path; then the candidates of the first 8 frames of it and of
+    the pipelined path against detect's, timings in turns, one profile
+    at microbatch 1 and 8, and the peak device memory at 8."""
+    model = pbd.make_person_like_model()
+    det = pbd.PartsBasedDetector(model, buckets_per_octave=2, device=DEVICE)
+    frames = [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+              for i in range(64)]
+    det.detect_many(frames[:8], microbatch=8)  # warm-up: plans, allocator
+    det.detect_many(frames[:8], prefetch=6, readback_top=64)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the main path, counts at 0 just before it and read just after;
+    # then the other two paths, and the same three again (in turns)
+    torch.cuda.reset_peak_memory_stats()
+    dt_cuda.launches = conv_cuda.launches = tc.launches = 0
+    got8, sec = timed(lambda: det.detect_many(frames, microbatch=8))
+    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches,
+              "transpose": tc.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"serving: a kernel was not launched: {counts}")
+    mb8_ips = [64 / sec]
+    dt_cuda.launches = conv_cuda.launches = tc.launches = 0
+    pipe, sec = timed(lambda: det.detect_many(frames, prefetch=6, readback_top=64))
+    pipe_counts = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    if min(pipe_counts) <= 0:
+        raise AssertionError(f"serving: pipelined path launches {pipe_counts}")
+    pipe_ips = [64 / sec]
+    want, sec = timed(lambda: [det.detect(f) for f in frames[:8]])
+    sync_ms = [sec * 1e3 / 8]
+    for i, w in enumerate(want):
+        if not close_candidates(got8[i], w):
+            raise AssertionError(f"serving: microbatch 8 differs from detect, frame {i}")
+        if not close_candidates(pipe[i], w[:64]):
+            raise AssertionError(f"serving: pipelined path differs from detect, frame {i}")
+    if len(got8) != 64 or len(pipe) != 64 or not want[0]:
+        raise AssertionError("serving: wrong result count or no candidates")
+    sync_ms.append(timed(lambda: [det.detect(f) for f in frames[8:16]])[1] * 1e3 / 8)
+    pipe_ips.append(64 / timed(
+        lambda: det.detect_many(frames, prefetch=6, readback_top=64))[1])
+    mb8_ips.append(64 / timed(lambda: det.detect_many(frames, microbatch=8))[1])
+    p1 = profile_device(torch, lambda: det.detect_many(frames[:8]), 8)
+    p8 = profile_device(torch, lambda: det.detect_many(frames[:8], microbatch=8), 8)
+    log("serving", frames="64 distinct uint8 " + "x".join(map(str, im.shape[:2])),
+        buckets_per_octave=2,
+        candidates_frame0=len(want[0]), match_first_8="microbatch 8 and pipelined",
+        microbatch8_launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+        sync_detect_ms_per_image=",".join(f"{t:.3f}" for t in sync_ms),
+        pipelined_prefetch6_top64_images_per_s=",".join(f"{t:.3f}" for t in pipe_ips),
+        microbatch8_images_per_s=",".join(f"{t:.3f}" for t in mb8_ips),
+        mb1_device_ops_per_image=f"{p1['ops']:.0f}",
+        mb1_device_busy_ms_per_image=f"{p1['busy']:.3f}",
+        mb8_device_ops_per_image=f"{p8['ops']:.0f}",
+        mb8_device_busy_ms_per_image=f"{p8['busy']:.3f}",
+        mb8_peak_device_bytes=peak, card=f"'{card}'")
+    for tag, prof in (("serving_profile_mb1", p1), ("serving_profile_mb8", p8)):
+        log(tag, **{f"{k}_ms_per_image": f"{v:.3f}" for k, v in prof["families"].items()},
+            top=prof["top"])
+    return {"counts": counts}
+
+
+def check_stream(torch, np, pbd, im, card) -> None:
+    """detect_stream on 12 person26 VGA frames, RGB and (rgb, uint16
+    depth) pairs mixed, with the depth gate and the device depth filter
+    (config 5's set-up), lookahead 4, 2 workers, readback_batch 3: the
+    output order and candidates equal per-frame detect's."""
+    from partsbaseddetector_tpu_torch.depth import DepthGate
+
+    model = pbd.make_person_like_model()
+    model.thresh = -1e9
+    det = pbd.PartsBasedDetector(
+        model, max_detections=16, buckets_per_octave=2, device=DEVICE,
+        device_depth_filter=True,
+        depth_gate=DepthGate(object_width_m=0.6, fx=10.0, tolerance=0.5))
+    rng = np.random.RandomState(6)
+    frames = []
+    for i in range(12):
+        rgb = np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+        if i % 3 == 2:
+            frames.append(rgb)
+        else:
+            depth = ((1.0 + rng.rand(*im.shape[:2])) * 1000.0).astype(np.uint16)
+            frames.append((rgb, depth))
+    args = lambda f: f if isinstance(f, tuple) else (f,)
+    det.detect(*args(frames[0]))  # warm-up
+    t0 = time.perf_counter()
+    want = [det.detect(*args(f)) for f in frames]
+    sync_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    got = list(det.detect_stream(frames, lookahead=4, workers=2, readback_batch=3))
+    stream_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    if len(got) != len(want) or not all(
+            same_candidates(g, w) for g, w in zip(got, want)):
+        raise AssertionError("stream: order or candidates differ from detect")
+    log("stream", frames="12 uint8 " + "x".join(map(str, im.shape[:2]))
+        + ", 8 with uint16 depth", readback_batch=3,
+        workers=2, lookahead=4, identical_to_detect=True,
+        candidates=",".join(str(len(g)) for g in got),
+        stream_ms_per_frame=f"{stream_ms:.3f}", detect_ms_per_frame=f"{sync_ms:.3f}",
+        card=f"'{card}'")
+
+
+def check_nms(torch, np, pbd, nms, im, card) -> None:
+    """person26 with nms_overlap=0.3: the CPU path's candidates at
+    120x160, and the device time (profiler) and event time of
+    part_nms_device per image at batch 1 and 8 on the top-k of VGA
+    detects."""
+    model = pbd.make_person_like_model()
+    model.thresh = -1e9
+    kw = dict(buckets_per_octave=2, nms_overlap=0.3)
+    det = pbd.PartsBasedDetector(model, device=DEVICE, **kw)
+    small = im[:120, :160]
+    got = det.detect(small)
+    want = pbd.PartsBasedDetector(model, device="cpu", **kw).detect(small)
+    plain = pbd.PartsBasedDetector(model, device=DEVICE, buckets_per_octave=2)
+    if not 0 < len(got) < len(plain.detect(small)):
+        raise AssertionError("nms: suppressed nothing or everything")
+    if not same_candidates(got, want, score_tol=1e-4, box_tol=1e-3):
+        raise AssertionError("nms: CUDA and CPU paths differ at 120x160")
+    frames = np.stack([np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+                       for i in range(8)])
+    boxes, scores, _, valid, _ = plain.detect_batch_fn(im.shape[:2], 8)(
+        torch.as_tensor(frames, device=DEVICE))
+    per_image, busy = {}, {}
+    for b in (1, 8):
+        args = (boxes[:b], scores[:b], valid[:b], 0.3)
+        per_image[b] = cuda_ms(lambda: nms.part_nms_device(*args), reps=5) / b
+        busy[b] = profile_device(torch, lambda: nms.part_nms_device(*args), b)
+
+    keep = nms.part_nms_device(boxes, scores, valid, 0.3)
+    for i in range(8):
+        live = np.flatnonzero(valid[i].cpu().numpy())
+        host = live[nms.part_nms(boxes[i].cpu().numpy()[live],
+                                 scores[i].cpu().numpy()[live], 0.3)]
+        if not np.array_equal(np.sort(host), np.flatnonzero(keep[i].cpu().numpy())):
+            raise AssertionError(f"nms: device keep mask differs from part_nms, frame {i}")
+    log("nms", overlap=0.3, candidates_120x160=f"{len(got)} of {len(plain.detect(small))}",
+        cpu_match_120x160=True, host_part_nms_match="8 VGA frames",
+        kept_vga=",".join(str(int(k.sum())) for k in keep),
+        # device time from the profiler; CUDA events around the call also
+        # count the N-step chain's launch gaps
+        device_ms_per_image_batch1=f"{busy[1]['busy']:.4f}",
+        device_ms_per_image_batch8=f"{busy[8]['busy']:.4f}",
+        device_ops_per_image_batch1=f"{busy[1]['ops']:.0f}",
+        device_ops_per_image_batch8=f"{busy[8]['ops']:.0f}",
+        event_ms_per_image_batch1=f"{per_image[1]:.4f}",
+        event_ms_per_image_batch8=f"{per_image[8]:.4f}", card=f"'{card}'")
 
 
 def main() -> int:
@@ -822,8 +1180,9 @@ def main() -> int:
         import partsbaseddetector_tpu_torch as pbd
         import partsbaseddetector_tpu_torch.train as pbd_train
         from partsbaseddetector_tpu_torch import kernels
-        from partsbaseddetector_tpu_torch.ops import conv, conv_cuda, dt_cuda
+        from partsbaseddetector_tpu_torch.ops import conv, conv_cuda, dt_cuda, nms
         from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
+        from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -853,9 +1212,10 @@ def main() -> int:
     conv_row = check_conv(torch, conv, conv_cuda, gen)
     check_golden(np, pbd)
     counts, ms, det, im = check_person26(
-        torch, np, pbd, dt_cuda, conv_cuda, gen, card
+        torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card
     )
     profile_person26(torch, det, im, ms)
+    tp_row = check_transpose(torch, np, tc, dtm, gen, det, im)
     bwd_row = check_dt_bwd(torch, dt_cuda, gen)
     train = check_train(torch, np, pbd, pbd_train, dt_cuda, card)
     win_row = check_dt_window(torch, dt_cuda, dtm, gen, det, im)
@@ -865,6 +1225,9 @@ def main() -> int:
     det_f, ms_f = check_fourier(torch, np, pbd, dt_cuda, conv_cuda, im, card)
     profile_person26(torch, det_f, im, ms_f, phase="fourier_profile")
     check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card)
+    serving = check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)
+    check_stream(torch, np, pbd, im, card)
+    check_nms(torch, np, pbd, nms, im, card)
 
     table = {"kernels": [
         {"name": "dt1d_axis2", "route": "cuda",
@@ -884,6 +1247,10 @@ def main() -> int:
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_window.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:321",
          "launches": win["launches"], **win_row},
+        {"name": "transpose32", "route": "cuda",
+         "source": "partsbaseddetector_tpu_torch/csrc/transpose.cu",
+         "replaces": "tools/transpose_kernel_probe.py:25",
+         "launches": serving["counts"]["transpose"], **tp_row},
     ]}
     print(json.dumps(table))
     print(card)

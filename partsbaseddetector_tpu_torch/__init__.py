@@ -8,8 +8,10 @@ and the spatial engine: the part-filter responses and the distance
 transforms run hand-written CUDA kernels (`csrc/`) on a CUDA device,
 and their plain torch versions on the CPU. The Fourier engine, RGB-D
 detection (`depth_gate`, `device_depth_filter`), the adaptive-window
-distance transform (`PBD_DT_WINDOW=1`) and the SGD training step are
-ported too.
+distance transform (`PBD_DT_WINDOW=1`), the part NMS (`nms_overlap`),
+the batch and stream serving APIs and the SGD training step are ported
+too. Every entry point runs on the card unless it is given
+device="cpu".
 """
 
 __version__ = "0.1.0"

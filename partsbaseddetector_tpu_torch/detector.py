@@ -1,9 +1,11 @@
-"""PartsBasedDetector: the public detect() API of the torch port.
+"""PartsBasedDetector: the public detect and serving APIs of the torch port.
 
 Port of `partsbaseddetector_tpu/detector.py` for the f32 profile. API
 as in the reference detector (include/PartsBasedDetector.hpp:167-175):
 construct, distribute_model(), name, detect(image[, depth]) ->
-candidates. One call runs, on the detector's device:
+candidates, plus the JAX package's serving APIs: detect_batch,
+detect_many, detect_stream, detect_fn and detect_batch_fn. One program
+runs, on the detector's device, over one frame or a batch of frames:
 
     HOG pyramid (matrix-product resampling + tent histograms)
       -> batched part-filter responses per bucket (CUDA kernel K2, or
@@ -11,26 +13,41 @@ candidates. One call runs, on the detector's device:
       -> -inf valid-extent masking (and, with a depth_gate and a depth
          map, the plausible-depth response gate)
       -> tree min-sum DP (2-D distance transforms: CUDA kernel K1, or
-         the adaptive-window kernel K5 under PBD_DT_WINDOW=1)
-      -> merged top-k backtracking (and, with device_depth_filter, the
-         candidates' depth-consistency keep mask)
+         the adaptive-window kernel K5 under PBD_DT_WINDOW=1, with the
+         x pass's transposes on the T2 kernel)
+      -> merged top-k backtracking per image (optionally the part-aware
+         NMS keep mask, and with device_depth_filter the candidates'
+         depth-consistency keep mask)
 
 and only the final dense candidate tensors come back to the host. The
 per-image-size plan (and the Fourier engine's filter spectra) is built
 once and cached.
+
+Serving on the card: frames go up from pinned host memory on a copy
+stream of their own, which the compute stream waits for on an event;
+outputs are packed on the device into one (k, M) f32 buffer per group
+of frames and come back with one non-blocking copy into pinned host
+memory and one event wait. On the CPU the same code runs without
+streams and without pinned memory, because the caller asked for the
+CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from itertools import islice
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .models.model import Model, PackedModel, pack_model, to_device
 from .ops.depth_device import component_tables, depth_keep_mask
 from .ops.dp import backtrack, backtrack_merged, stable_top_k
+from .ops.nms import part_nms_device
 from .pipeline import (
     depth_response_masks,
     fourier_spectra_args,
@@ -39,9 +56,12 @@ from .pipeline import (
 )
 from .ops.pyramid import PyramidPlan
 from .types import Candidate, DetectionResult
+from .utils.device import resolve_device
 from .utils.profiling import validate_image
 
 NEG_INF = -math.inf
+# frames per packed readback group (detect_batch, the pipelined path)
+PACK = 8
 
 
 def _depth_meters_host(depth: np.ndarray) -> np.ndarray:
@@ -54,6 +74,22 @@ def _depth_meters_host(depth: np.ndarray) -> np.ndarray:
     return depth
 
 
+def _wire_image(im: np.ndarray) -> np.ndarray:
+    """A validated frame as it travels: uint8 stays uint8 (cast to f32 on
+    the device, exactly), any other type becomes f32."""
+    return im if im.dtype == np.uint8 else im.astype(np.float32, copy=False)
+
+
+class _Transfer(NamedTuple):
+    """A copy in flight: the destination tensor, the pinned host buffer
+    the copy reads or writes (kept referenced until the copy is done)
+    and the event recorded after it (None on the CPU)."""
+
+    tensor: torch.Tensor
+    pinned: Optional[torch.Tensor]
+    done: Optional[torch.cuda.Event]
+
+
 class PartsBasedDetector:
     """Flexible-mixtures-of-parts detector on torch.
 
@@ -62,6 +98,9 @@ class PartsBasedDetector:
       max_detections: per-image candidate budget.
       conv_engine: "spatial" (the K2 kernel) or "fourier" (FFT path, the
           intended FourierConvolutionEngine behaviour).
+      nms_overlap: with a value, the part-aware NMS (detection/nms.m,
+          ops/nms.py::part_nms_device) runs on the device after the
+          top-k and its keep mask is ANDed into `valid`.
       border_mode: "matlab" (authoritative) or "cpp" (the C++ demo's
           same-size grids, one-padded borders, one-cell box offset).
       buckets_per_octave: >1 splits each octave into finer scale
@@ -73,10 +112,11 @@ class PartsBasedDetector:
       device_depth_filter: run the candidate depth-consistency filter
           on the device (ops/depth_device.py) instead of on the host
           (depth.py, the exact reference and the default).
-      device: where the pipeline runs ("cuda", "cuda:1", "cpu"). On a
-          CUDA device the part-filter responses and the distance
-          transforms run the hand-written kernels; on the CPU they run
-          their plain torch versions.
+      device: where the pipeline runs ("cuda", the default, "cuda:1",
+          "cpu"). On a CUDA device the part-filter responses, the
+          distance transforms and their transposes run the hand-written
+          kernels; on the CPU they run their plain torch versions. A
+          CUDA device on a machine without one raises RuntimeError.
 
     This is the f32 profile: constructing a detector turns off TF32 for
     both cuBLAS matmuls and cuDNN (`torch.backends.cuda.matmul.
@@ -85,8 +125,8 @@ class PartsBasedDetector:
     breaks its score parity.
 
     Options of the JAX detector that later slices port raise
-    NotImplementedError: a dtype other than float32 (the bf16 profile),
-    rerank_fp32 and nms_overlap.
+    NotImplementedError: a dtype other than float32 (the bf16 profile)
+    and rerank_fp32.
     """
 
     def __init__(
@@ -101,7 +141,7 @@ class PartsBasedDetector:
         depth_gate=None,
         device_depth_filter: bool = False,
         rerank_fp32: Optional[bool] = None,
-        device="cpu",
+        device="cuda",
     ):
         if conv_engine not in ("spatial", "fourier"):
             raise ValueError(f"unknown conv engine: {conv_engine}")
@@ -111,15 +151,14 @@ class PartsBasedDetector:
             )
         if rerank_fp32:
             raise NotImplementedError("the fp32 re-rank is not ported yet")
-        if nms_overlap is not None:
-            raise NotImplementedError("device part NMS is not ported yet")
         if border_mode not in ("matlab", "cpp"):
             raise ValueError(f"unknown border mode: {border_mode}")
+        self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.device = torch.device(device)
         self.max_detections = int(max_detections)
         self.conv_engine = conv_engine
+        self.nms_overlap = None if nms_overlap is None else float(nms_overlap)
         self.border_mode = border_mode
         self.buckets_per_octave = int(buckets_per_octave)
         self.depth_gate = depth_gate
@@ -129,6 +168,10 @@ class PartsBasedDetector:
         self._depth_tables = None
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
         self._spectra: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+        # uploads run on a stream of their own (the card only)
+        self._copy_stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
         if model is not None:
             self.distribute_model(model)
 
@@ -180,40 +223,445 @@ class PartsBasedDetector:
         """Run detection, returning dense padded arrays (host copies).
         The depth map is used here only with a depth_gate (response
         pruning) or device_depth_filter (depth_keep, the keep mask);
-        the host candidate filter stays in detect()."""
-        if self._packed is None:
-            raise RuntimeError("distribute_model() must be called first")
-        im = validate_image(im, min_side=5 * self._packed.spec.sbin)
-        if im.dtype != np.uint8:
-            im = im.astype(np.float32, copy=False)
-        frame = torch.as_tensor(np.ascontiguousarray(im)).to(self.device)
-        d_dev = None
-        if depth is not None and (
-            self.depth_gate is not None or self.device_depth_filter
-        ):
-            depth = np.asarray(depth)
-            if depth.ndim != 2:
-                raise ValueError(f"depth must be (H, W), got {depth.shape}")
-            if depth.dtype != np.uint16:
-                depth = depth.astype(np.float32, copy=False)
-            # a uint16 frame travels as uint16 and becomes metres in f32
-            # on the device, as _depth_meters_host does on the host
-            d_dev = torch.as_tensor(np.ascontiguousarray(depth)).to(self.device)
-            if depth.dtype == np.uint16:
-                d_dev = d_dev.to(torch.float32) / 1000.0
-        out = self._run(frame, d_dev)
-        host = [t.cpu().numpy() for t in out]
+        the host candidate filter stays in detect(). The outputs come
+        back packed, in one copy."""
+        out = self._run(*self._inputs(self._validate(im), depth))
+        wk = len(out) > 5
+        row = self._wait(self._readback(self._packer([out], wk)))[0]
+        boxes, scores, comps, valid, mixtures, keep = self._unpack_host(row, wk)
         return DetectionResult(
-            boxes=host[0],
-            scores=host[1],
-            components=host[2],
-            valid=host[3],
+            boxes=boxes,
+            scores=scores,
+            components=comps,
+            valid=valid,
             nparts_by_component=[c.nparts for c in self._packed.components],
-            mixtures=host[4],
-            depth_keep=host[5] if len(host) > 5 else None,
+            mixtures=mixtures,
+            depth_keep=keep,
         )
 
+    # -- serving APIs -----------------------------------------------------------
+
+    def detect_fn(self, imsize: Tuple[int, int]):
+        """The single-frame program for one image size: a callable from
+        one (H, W, 3) frame on the detector's device (any real dtype) to
+        the five device outputs (boxes (D, P, 4), scores (D,),
+        components (D,), valid (D,), mixtures (D, P)), best first. It
+        returns as soon as the work is queued: no host sync."""
+        key = self._imsize(imsize)
+
+        def fn(im: torch.Tensor):
+            if tuple(im.shape) != (*key, 3):
+                raise ValueError(f"expected a {key} frame, got {tuple(im.shape)}")
+            return tuple(t[0] for t in self._run(im[None]))
+
+        return fn
+
+    def detect_batch_fn(self, imsize: Tuple[int, int], batch: int):
+        """The fused batched program: one run of the whole pipeline over
+        a (batch, H, W, 3) stack on the device (the JAX package's vmap of
+        the single-frame program): shared bucket plans, the conv and DT
+        kernels over every image's maps in one launch each, one top-k
+        per image. Returns the five outputs with a leading image axis,
+        without a host sync. Under the Fourier engine it uses the
+        spectra cached for the image size. The batch is bounded by
+        device memory: large request lists stream through microbatches
+        of this program (detect_many)."""
+        key = self._imsize(imsize)
+        batch = int(batch)
+
+        def fn(ims: torch.Tensor):
+            if tuple(ims.shape) != (batch, *key, 3):
+                raise ValueError(
+                    f"expected a ({batch}, {key[0]}, {key[1]}, 3) stack, "
+                    f"got {tuple(ims.shape)}"
+                )
+            return self._run(ims)
+
+        return fn
+
+    def detect_batch(self, images) -> List[List[Candidate]]:
+        """Throughput API: queue every image's program without waiting,
+        pack the outputs on the device in groups of PACK frames, read
+        each group back with one copy, and synchronise once. Images may
+        differ in size (one plan per size)."""
+        outs = [self._run(*self._inputs(self._validate(im))) for im in images]
+        reads = [
+            (self._readback(self._packer(outs[i : i + PACK])),
+             len(outs[i : i + PACK]))
+            for i in range(0, len(outs), PACK)
+        ]
+        return self._collect(reads)
+
+    def detect_many(
+        self,
+        images,
+        microbatch: int = 1,
+        readback_top: Optional[int] = None,
+        prefetch: int = 0,
+    ) -> List[List[Candidate]]:
+        """High-throughput batch API over same-shape images.
+
+        microbatch=1 (default) queues the single-frame program per image
+        (detect_batch); with prefetch>0 or readback_top it takes the
+        pipelined path, where a worker thread stages the uploads
+        `prefetch` frames ahead of dispatch and each frame's readback
+        is cut to its best `readback_top` valid candidates (score order
+        kept). microbatch>1 runs detect_batch_fn's fused program over
+        stacks of `microbatch` frames, padding the request list with its
+        last image."""
+        if len(images) == 0:
+            return []
+        if microbatch == 1:
+            if prefetch > 0 or readback_top is not None:
+                return self._detect_many_pipelined(
+                    images, readback_top, max(prefetch, 1)
+                )
+            return self.detect_batch(images)
+        if prefetch > 0 or readback_top is not None:
+            raise ValueError(
+                "readback_top/prefetch belong to the microbatch=1 "
+                "pipelined path; the fused batched path (microbatch>1) "
+                "reads full outputs"
+            )
+        imgs = self._same_shape([self._validate(im) for im in images])
+        n = len(imgs)
+        imgs += [imgs[-1]] * ((-n) % microbatch)
+        fn = self.detect_batch_fn(imgs[0].shape[:2], microbatch)
+        reads = []
+        for i in range(0, len(imgs), microbatch):
+            stack = self._to_device(np.stack(imgs[i : i + microbatch]))
+            reads.append((self._readback(self._packer([fn(stack)])), microbatch))
+        return self._collect(reads)[:n]
+
+    def detect_stream(
+        self,
+        frames,
+        lookahead: int = 2,
+        workers: int = 1,
+        readback_batch: int = 1,
+    ):
+        """Pipelined streaming serving: yields List[Candidate] per frame.
+
+        frames: iterable of rgb or (rgb, depth) pairs. Keeps up to
+        `lookahead` frames' programs in flight, so uploads, device
+        compute and host post-processing (readback, the host depth
+        filter, candidate assembly) overlap. workers=N runs readback and
+        post-processing on N threads (chunks finish concurrently; output
+        order is kept); workers=0 runs them inline. readback_batch packs
+        that many frames per readback; readback_batch>1 raises the
+        lookahead to 2k, so that a full chunk can form while another
+        reads back. With readback_batch=1 the caller's lookahead is
+        honoured exactly (0 is fully synchronous). A chunk never mixes
+        gated frames (6 outputs, with the device keep mask) and plain
+        ones (5)."""
+        pend = deque()  # (frames, future or payload) per chunk
+        buf = []  # (outputs, depth) of frames not yet in a chunk
+        ready = deque()  # per-frame results of finished chunks
+
+        def finish_chunk(payload):
+            read, depths, wk = payload
+            return self._rows_to_candidates(self._wait(read), depths, wk)
+
+        pool = ThreadPoolExecutor(max_workers=workers) if workers else None
+
+        def flush_buf():
+            if buf:
+                chunk = list(buf)
+                buf.clear()
+                outs = [o for o, _ in chunk]
+                wk = len(outs[0]) > 5
+                payload = (
+                    self._readback(self._packer(outs, wk)),
+                    [d for _, d in chunk],
+                    wk,
+                )
+                pend.append(
+                    (len(chunk),
+                     pool.submit(finish_chunk, payload) if pool else payload)
+                )
+
+        def pop_chunk():
+            _, payload = pend.popleft()
+            return payload.result() if pool else finish_chunk(payload)
+
+        def in_flight():
+            return len(buf) + sum(n for n, _ in pend)
+
+        if readback_batch > 1:
+            lookahead = max(lookahead, 2 * readback_batch)
+        try:
+            for frame in frames:
+                rgb, depth = frame if isinstance(frame, tuple) else (frame, None)
+                out = self._run(*self._inputs(self._validate(rgb), depth))
+                if buf and len(buf[-1][0]) != len(out):
+                    flush_buf()
+                buf.append((out, depth))
+                if len(buf) >= readback_batch:
+                    flush_buf()
+                while in_flight() > lookahead:
+                    if not pend:
+                        flush_buf()
+                    ready.extend(pop_chunk())
+                while ready:
+                    yield ready.popleft()
+            flush_buf()
+            while pend:
+                ready.extend(pop_chunk())
+            while ready:
+                yield ready.popleft()
+        finally:
+            if pool:
+                pool.shutdown(wait=False)
+
+    def _detect_many_pipelined(
+        self, images, readback_top: Optional[int], prefetch: int
+    ) -> List[List[Candidate]]:
+        """The microbatch=1 serving loop: ONE uploader thread keeps
+        `prefetch` uploads (pinned staging and the copy on the copy
+        stream) in flight ahead of dispatch, outputs pack on the device
+        in groups of PACK (cut to readback_top), and each group comes
+        back with one copy."""
+        top = self._norm_top(readback_top)
+        imgs = self._same_shape([self._validate(im) for im in images])
+        pool = ThreadPoolExecutor(max_workers=1)
+        todo = iter(imgs)
+        futs = deque(
+            pool.submit(self._upload, im) for im in islice(todo, prefetch)
+        )
+        outs: List = []
+        reads = []
+        try:
+            while futs:
+                frame = self._arrived(futs.popleft().result())
+                im = next(todo, None)
+                if im is not None:
+                    futs.append(pool.submit(self._upload, im))
+                outs.append(self._run(frame[None]))
+                if len(outs) == PACK:
+                    reads.append((self._readback(self._packer(outs, top=top)), PACK))
+                    outs = []
+            if outs:
+                reads.append(
+                    (self._readback(self._packer(outs, top=top)), len(outs))
+                )
+        finally:
+            pool.shutdown(wait=False)
+        return self._collect(reads, top=top)
+
+    # -- uploads and readback -----------------------------------------------
+
+    def _upload(self, arr: np.ndarray) -> _Transfer:
+        """Start one host array's copy to the device. On the card the
+        array is staged in pinned host memory and copied on the
+        detector's copy stream, with an event recorded behind the copy;
+        `_arrived` makes the consuming stream wait for it. The pinned
+        buffer stays referenced by the transfer (and torch's pinned
+        allocator does not reuse it before the copy's event), so it
+        outlives the copy. May run on a worker thread."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return _Transfer(host.to(self.device), None, None)
+        with torch.cuda.device(self.device):
+            pinned = host.pin_memory()
+            with torch.cuda.stream(self._copy_stream):
+                dev = pinned.to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+        return _Transfer(dev, pinned, done)
+
+    def _arrived(self, up: _Transfer) -> torch.Tensor:
+        """The uploaded tensor, usable on the current stream: the stream
+        waits for the copy's event, and the tensor (allocated on the
+        copy stream) is recorded as used on it, so the caching
+        allocator does not hand its memory out again before the
+        compute that reads it is done."""
+        if up.done is None:
+            return up.tensor
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(up.done)
+        up.tensor.record_stream(compute)
+        return up.tensor
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return self._arrived(self._upload(arr))
+
+    def _readback(self, buf: torch.Tensor) -> _Transfer:
+        """Start one packed buffer's copy to the host: on the card one
+        non-blocking copy into pinned host memory, with an event behind
+        it; on the CPU the buffer itself."""
+        if buf.device.type != "cuda":
+            return _Transfer(buf, None, None)
+        pinned = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        pinned.copy_(buf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(buf.device))
+        return _Transfer(pinned, pinned, done)
+
+    @staticmethod
+    def _wait(read: _Transfer) -> np.ndarray:
+        if read.done is not None:
+            read.done.synchronize()
+        return read.tensor.numpy()
+
+    def _collect(self, reads, top: Optional[int] = None) -> List[List[Candidate]]:
+        """Candidates of readbacks (transfer, frames) issued in order on
+        one stream: one wait, on the last, then host assembly."""
+        if reads:
+            self._wait(reads[-1][0])
+        results: List[List[Candidate]] = []
+        for read, n in reads:
+            results.extend(
+                self._rows_to_candidates(self._wait(read), [None] * n, top=top)
+            )
+        return results
+
+    # -- packed readback -------------------------------------------------------
+
+    def _packer(
+        self, outs, with_keep: bool = False, top: Optional[int] = None
+    ) -> torch.Tensor:
+        """Device-side output packer: a list of program outputs, each
+        with a leading image axis, -> ONE (k, M) float32 tensor for
+        their k frames, so that a group comes back in one copy. Int
+        leaves travel bit-cast to f32 (exact), bools as 0/1. top
+        (optional) first cuts each frame to its best `top` rows: a
+        stable partition puts the valid rows first (device NMS clears
+        rows in place, so valid rows need not form a prefix), keeping
+        score order. _unpack_host is the inverse."""
+        top = self._norm_top(top)
+        o = tuple(torch.cat(leaf) for leaf in zip(*outs))
+        k = o[0].shape[0]
+        if top is not None:
+            order = torch.argsort((~o[3]).to(torch.int32), dim=1, stable=True)
+            rows = torch.arange(k, device=order.device)[:, None]
+            o = tuple(x[rows, order[:, :top]] for x in o)
+        parts = [
+            o[0].reshape(k, -1).to(torch.float32),  # boxes
+            o[1].to(torch.float32),  # scores
+            o[2].to(torch.int32).view(torch.float32),  # components
+            o[3].to(torch.float32),  # valid
+            o[4].to(torch.int32).view(torch.float32).reshape(k, -1),  # mixtures
+        ]
+        if with_keep:
+            parts.append(o[5].to(torch.float32))
+        return torch.cat(parts, dim=1)
+
+    def _rows_to_candidates(
+        self,
+        host: np.ndarray,
+        depths,
+        wk: bool = False,
+        top: Optional[int] = None,
+    ) -> List[List[Candidate]]:
+        """Shared packed-row assembly: unpack each frame's row, apply
+        the device keep mask (gated programs) or the host depth filter
+        (ungated frames that carried a depth map), and build the
+        candidate lists. depths: per-frame depth map or None."""
+        nbc = [c.nparts for c in self._packed.components]
+        results: List[List[Candidate]] = []
+        for j, depth in enumerate(depths):
+            bx, sc, cp, vd, mx, keep = self._unpack_host(host[j], wk, top)
+            if keep is not None:
+                vd = vd & keep
+            cands = DetectionResult(
+                boxes=bx,
+                scores=sc,
+                components=cp,
+                valid=vd,
+                nparts_by_component=nbc,
+                mixtures=mx,
+            ).to_candidates()
+            if depth is not None and not wk:
+                from .depth import filter_candidates_by_depth
+
+                cands = filter_candidates_by_depth(
+                    self._packed, cands, _depth_meters_host(depth)
+                )
+            results.append(cands)
+        return results
+
+    def _norm_top(self, top: Optional[int]) -> Optional[int]:
+        """Clamp a readback truncation to the program's candidate
+        budget; asking for >= max_detections is the full readback
+        (slicing beyond D would shrink the packed rows and desync
+        _unpack_host's offsets)."""
+        if top is None:
+            return None
+        top = int(top)
+        if top <= 0:
+            raise ValueError(f"readback_top must be positive, got {top}")
+        top = min(top, self.max_detections)
+        return None if top == self.max_detections else top
+
+    def _unpack_host(
+        self,
+        row: np.ndarray,
+        with_keep: bool = False,
+        top: Optional[int] = None,
+    ):
+        """Inverse of _packer for one frame's packed row."""
+        top = self._norm_top(top)
+        d = self.max_detections if top is None else top
+        p = self._packed.max_nparts
+        nb, ns = d * p * 4, d
+        off = 0
+        bx = row[off : off + nb].reshape(d, p, 4)
+        off += nb
+        sc = row[off : off + ns]
+        off += ns
+        cp = row[off : off + ns].view(np.int32)
+        off += ns
+        vd = row[off : off + ns] != 0.0
+        off += ns
+        mx = row[off : off + d * p].view(np.int32).reshape(d, p)
+        off += d * p
+        keep = None
+        if with_keep:
+            keep = row[off : off + ns] != 0.0
+        return bx, sc, cp, vd, mx, keep
+
     # -- internals --------------------------------------------------------------
+
+    def _validate(self, im) -> np.ndarray:
+        if self._packed is None:
+            raise RuntimeError("distribute_model() must be called first")
+        return validate_image(im, min_side=5 * self._packed.spec.sbin)
+
+    def _imsize(self, imsize) -> Tuple[int, int]:
+        if self._packed is None:
+            raise RuntimeError("distribute_model() must be called first")
+        key = (int(imsize[0]), int(imsize[1]))
+        self._plan(key)
+        return key
+
+    @staticmethod
+    def _same_shape(imgs: List[np.ndarray]) -> List[np.ndarray]:
+        if any(im.shape[:2] != imgs[0].shape[:2] for im in imgs):
+            raise ValueError(
+                "detect_many's pipelined and batched paths need same-shape "
+                "images (one plan); mixed shapes go through detect_batch"
+            )
+        return [_wire_image(im) for im in imgs]
+
+    def _inputs(self, im: np.ndarray, depth: Optional[np.ndarray] = None):
+        """One validated frame on the device as a batch of one, and its
+        depth map when the gate or the device filter reads it: uint16
+        millimetres travel as uint16 and become metres in f32 on the
+        device, as _depth_meters_host does on the host."""
+        frame = self._to_device(_wire_image(im))[None]
+        if depth is None or not (
+            self.depth_gate is not None or self.device_depth_filter
+        ):
+            return frame, None
+        depth = np.asarray(depth)
+        if depth.ndim != 2:
+            raise ValueError(f"depth must be (H, W), got {depth.shape}")
+        if depth.dtype != np.uint16:
+            depth = depth.astype(np.float32, copy=False)
+        d_dev = self._to_device(depth)
+        if depth.dtype == np.uint16:
+            d_dev = d_dev.to(torch.float32) / 1000.0
+        return frame, d_dev
 
     def _plan(self, imsize: Tuple[int, int]) -> PyramidPlan:
         key = (int(imsize[0]), int(imsize[1]))
@@ -234,10 +682,17 @@ class PartsBasedDetector:
             ]
         return self._spectra[key]
 
-    def _run(self, im: torch.Tensor, depth: Optional[torch.Tensor] = None):
+    def _run(self, ims: torch.Tensor, depth: Optional[torch.Tensor] = None):
+        """The program over (B, H, W, 3) frames on the device: (boxes
+        (B, D, P, 4), scores (B, D), components (B, D) int32, valid
+        (B, D), mixtures (B, D, P) int32), each image's rows best first,
+        plus depth_keep (B, D) with a depth map and device_depth_filter.
+        A depth map ((H', W') f32 metres) belongs to a batch of one."""
         packed, dmodel = self._packed, self._dmodel
         spec = packed.spec
-        plan = self._plan(im.shape[:2])
+        imsize = tuple(ims.shape[1:3])
+        plan = self._plan(imsize)
+        nimg = ims.shape[0]
         max_det = self.max_detections
         p_max = packed.max_nparts
         dev = self.device
@@ -245,10 +700,10 @@ class PartsBasedDetector:
         if depth is not None and self.depth_gate is not None:
             rmasks = depth_response_masks(depth, plan, spec, self.depth_gate)
         scores = root_scores(
-            im, packed, dmodel, plan, engine=self.conv_engine,
+            ims, packed, dmodel, plan, engine=self.conv_engine,
             response_masks=rmasks,
             fft_spectra=(
-                self._fft_spectra(im.shape[:2])
+                self._fft_spectra(imsize)
                 if self.conv_engine == "fourier" else None
             ),
         )
@@ -267,7 +722,7 @@ class PartsBasedDetector:
         )
         outs = []  # (boxes, scores, mixtures, valid, component) per call
         # merged tail for components with all parts on the root grid:
-        # one top-k and one walk across all their buckets
+        # one top-k per image and one walk across all their buckets
         by_comp: Dict[int, list] = {}
         for bs in scores:
             by_comp.setdefault(bs.component, []).append(bs)
@@ -299,26 +754,33 @@ class PartsBasedDetector:
             pc = packed.components[c].nparts
             if pc < p_max:
                 # pad the part axis by replicating the root box (keeps
-                # bounding boxes unaffected by padding)
-                rep = bx[:, :1].expand(bx.shape[0], p_max - pc, 4)
-                bx = torch.cat([bx, rep], dim=1)
-                mx = torch.nn.functional.pad(mx, (0, p_max - pc))
+                # union-box NMS and bounding boxes unaffected by padding)
+                rep = bx[:, :, :1].expand(nimg, bx.shape[1], p_max - pc, 4)
+                bx = torch.cat([bx, rep], dim=2)
+                mx = F.pad(mx, (0, p_max - pc))
             boxes_l.append(bx)
             scores_l.append(sc)
             mix_l.append(mx)
             valid_l.append(vd)
             comp_l.append(torch.full(sc.shape, c, dtype=torch.int32, device=dev))
-        boxes = torch.cat(boxes_l)
-        scores_all = torch.cat(scores_l)
-        mixtures = torch.cat(mix_l)
-        valid = torch.cat(valid_l)
-        comps = torch.cat(comp_l)
+        boxes = torch.cat(boxes_l, dim=1)
+        scores_all = torch.cat(scores_l, dim=1)
+        mixtures = torch.cat(mix_l, dim=1)
+        valid = torch.cat(valid_l, dim=1)
+        comps = torch.cat(comp_l, dim=1)
 
         masked = torch.where(valid, scores_all, NEG_INF)
         top, order = stable_top_k(masked, max_det)
+        rows = torch.arange(nimg, device=dev)[:, None]
+        out_boxes = boxes[rows, order]
+        out_valid = top > NEG_INF
+        if self.nms_overlap is not None:
+            keep = part_nms_device(out_boxes, top, out_valid, self.nms_overlap)
+            out_valid = out_valid & keep
         out = (
-            boxes[order], top, comps[order], top > NEG_INF, mixtures[order],
+            out_boxes, top, comps[rows, order], out_valid, mixtures[rows, order],
         )
         if depth is not None and self.device_depth_filter:
-            out += (depth_keep_mask(depth, out[0], out[2], *self._depth_tables),)
+            keep = depth_keep_mask(depth, out[0][0], out[2][0], *self._depth_tables)
+            out += (keep[None],)
         return out

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "pbd_conv_fp32": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "pbd_conv_smem_bytes": ([_I] * 3, ctypes.c_longlong),
     "pbd_conv_tile_filters": ([], _I),
+    # src, dst, batch, h, w, stream
+    "pbd_transpose32": ([_P] * 2 + [_I] * 3 + [_P], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

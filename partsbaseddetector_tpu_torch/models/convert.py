@@ -16,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .model import Model
 
 
@@ -89,10 +90,11 @@ def model_from_jax(m) -> Model:
 PARAM_KEYS = ("filters", "defs", "biases")
 
 
-def params_from_jax(params: Mapping, device="cpu") -> dict:
+def params_from_jax(params: Mapping, device="cuda") -> dict:
     """The JAX package's trainable pools (any arrays NumPy can read:
-    jax arrays, NumPy) as f32 torch leaf tensors on `device` that
-    require grad."""
+    jax arrays, NumPy) as f32 torch leaf tensors on `device` (the card
+    unless the caller asks for the CPU) that require grad."""
+    device = resolve_device(device)
     return {
         k: torch.tensor(
             np.asarray(params[k], np.float32), device=device,

@@ -82,12 +82,19 @@ def filter_responses_fft(
     (S, C) x (C, F) products per frequency (TF32 must be off, as the
     detector sets it). spectra (optional): fft_filter_spectra's array
     for (H, W), as a tensor on the features' device; without it the
-    filters are transformed here in f32."""
-    s, h, w, c = features.shape
+    filters are transformed here in f32. features may carry a leading
+    image axis, (B, S, H, W, C) -> (B, S, oh, ow, F): the spectra are
+    broadcast over it, as a batch dimension of the same products, so
+    each image's products keep the (S, C) x (C, F) shape, and its
+    rounding, that it has alone."""
+    single = features.dim() == 4
+    if single:
+        features = features[None]
+    _, _, h, w, c = features.shape
     f, fh, fw, fc = filters.shape
     if fc != c:
         raise ValueError(f"channel mismatch: features {c}, filters {fc}")
-    feat_f = torch.fft.rfft2(features.permute(0, 3, 1, 2), s=(h, w))
+    feat_f = torch.fft.rfft2(features.permute(0, 1, 4, 2, 3), s=(h, w))
     if spectra is None:
         filt_f = torch.conj(
             torch.fft.rfft2(filters.permute(0, 3, 1, 2), s=(h, w))
@@ -96,10 +103,10 @@ def filter_responses_fft(
         bi = filt_f.imag.permute(2, 3, 1, 0)
     else:
         br, bi = spectra[0], spectra[1]
-    a = feat_f.permute(0, 2, 3, 1)  # (S, h, wf, C)
-    mm = lambda x, y: torch.einsum("shwc,hwcf->shwf", x, y)
-    re = mm(a.real, br) - mm(a.imag, bi)
-    im = mm(a.real, bi) + mm(a.imag, br)
-    spec = torch.complex(re, im).permute(0, 3, 1, 2)  # (S, F, h, wf)
+    a = feat_f.permute(0, 3, 4, 1, 2)  # (B, h, wf, S, C)
+    re = a.real @ br - a.imag @ bi  # (B, h, wf, S, F)
+    im = a.real @ bi + a.imag @ br
+    spec = torch.complex(re, im).permute(0, 3, 4, 1, 2)  # (B, S, F, h, wf)
     out = torch.fft.irfft2(spec, s=(h, w))
-    return out[:, :, : h - fh + 1, : w - fw + 1].permute(0, 2, 3, 1)
+    out = out[..., : h - fh + 1, : w - fw + 1].permute(0, 1, 3, 4, 2)
+    return out[0] if single else out

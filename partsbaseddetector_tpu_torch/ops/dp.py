@@ -1,4 +1,5 @@
-"""Tree min-sum dynamic program + backtracking, batched over scales.
+"""Tree min-sum dynamic program + backtracking, batched over images and
+scales.
 
 Port of `partsbaseddetector_tpu/ops/dp.py` (`tree_min_sum` with its
 unrolled level schedule, `backtrack_merged`, `backtrack`). Parts are
@@ -17,6 +18,13 @@ Backtracking mirrors detect_fast.m:144-177: the best root placements
 (a stable top-k: equal scores keep the lower flat index first, as
 jax.lax.top_k does) are walked root-to-leaves through the pointer
 tables with gathers.
+
+Every map carries a leading image axis B (the JAX package's vmap over
+images, written out): responses (B, S, Hr, Wr, F), root maps
+(B, S, Hr, Wr), one top-k per image. B stays its own axis through the
+DP, so that slicing the scale axis ([:, :s]) never mixes images; it is
+folded into the DT's batch of maps only at the DT call, where the
+per-map parameters and live counts broadcast over it.
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ NEG_INF = -math.inf
 
 
 def stable_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Largest k of a 1-D tensor, best first; ties keep index order."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """Largest k along the last axis, best first; ties keep index
+    order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def _levels(comp: PackedComponent) -> Dict[int, List[int]]:
@@ -60,9 +69,9 @@ def tree_min_sum(
 ):
     """Min-sum message passing for one component over a scale bucket.
 
-    resps: the per-bucket (S, Hr, Wr, F) response stacks, -inf outside
-        valid extents; a part with accumulated octave offset d reads
-        bucket bucket_index - d*buckets_per_octave.
+    resps: the per-bucket (B, S, Hr, Wr, F) response stacks, -inf
+        outside valid extents; a part with accumulated octave offset d
+        reads bucket bucket_index - d*buckets_per_octave.
     dcomp: the component's arrays on the responses' device.
     valid_extents: per-bucket ((S, F) vh, (S, F) vw) NumPy lists; they
         become per-map live counts for the DT kernel, which then skips
@@ -74,8 +83,8 @@ def tree_min_sum(
         live counts: training masks with -1e10, not -inf, so every masked
         cell is an ordinary source, as in the JAX package's XLA DT. The
         where-chains pass gradients to the selected branch only.
-    Returns (rootv (S, Hr, Wr), rooti int32, tables {p: packed int32
-    pointers (S, L_parent, H_pargrid, W_pargrid)}).
+    Returns (rootv (B, S, Hr, Wr), rooti int32, tables {p: packed int32
+    pointers (B, S, L_parent, H_pargrid, W_pargrid)}).
     """
     bucket_of = lambda d: bucket_index - d * buckets_per_octave
     p_total, m_total = comp.filterid.shape
@@ -85,10 +94,10 @@ def tree_min_sum(
             "root bucket must be at least max octave offset octaves coarse"
         )
     root_resp = resps[bucket_of(0)]
-    s = root_resp.shape[0]
+    s = root_resp.shape[1]
     dev = root_resp.device
     for r in resps:
-        if r.shape[1] >= 4096 or r.shape[2] >= 4096:
+        if r.shape[2] >= 4096 or r.shape[3] >= 4096:
             raise ValueError("packed pointers use 12 bits/coordinate")
     trainable = tensors is not None
     defw_all, bias_all, root_bias = (
@@ -96,12 +105,13 @@ def tree_min_sum(
     )
 
     def part_score(p: int) -> torch.Tensor:
-        r = resps[bucket_of(int(ds[p]))][:s]  # align within-bucket scales
-        return r.index_select(-1, dcomp.filterid[p]).permute(0, 3, 1, 2)
+        # align within-bucket scales: a finer bucket may hold more
+        r = resps[bucket_of(int(ds[p]))][:, :s]
+        return r.index_select(-1, dcomp.filterid[p]).permute(0, 1, 4, 2, 3)
 
     def grid_of(p: int) -> Tuple[int, int]:
         r = resps[bucket_of(int(ds[p]))]
-        return r.shape[1], r.shape[2]
+        return r.shape[2], r.shape[3]
 
     def live_counts(p: int, par: int, w_child: int, hr_par: int):
         """Per-map live source counts (S, M) of the y pass and the x
@@ -140,15 +150,15 @@ def tree_min_sum(
     def combine(p: int, dt: torch.Tensor, ptr: torch.Tensor):
         """Mixture combine for one part, all parent mixtures l at once:
         a first-max-wins where-chain over child mixtures k.
-        dt/ptr: (S, K, Hp, Wp) -> (msg, tbl): (S, L, Hp, Wp)."""
-        b = bias_all[p][None, :, :, None, None]  # (1, L, K, 1, 1)
-        best = dt[:, None, 0] + b[:, :, 0]
-        ptrb = ptr[:, None, 0].expand_as(best)  # (0 << 24) | ptr
+        dt/ptr: (B, S, K, Hp, Wp) -> (msg, tbl): (B, S, L, Hp, Wp)."""
+        b = bias_all[p][:, :, None, None]  # (L, K, 1, 1)
+        best = dt[:, :, None, 0] + b[:, 0]
+        ptrb = ptr[:, :, None, 0].expand_as(best)  # (0 << 24) | ptr
         for k in range(1, m_total):
-            val = dt[:, None, k] + b[:, :, k]
+            val = dt[:, :, None, k] + b[:, k]
             pred = val > best
             best = torch.where(pred, val, best)
-            ptrb = torch.where(pred, (k << 24) | ptr[:, None, k], ptrb)
+            ptrb = torch.where(pred, (k << 24) | ptr[:, :, None, k], ptrb)
         return best, ptrb
 
     levels = _levels(comp)
@@ -174,11 +184,14 @@ def tree_min_sum(
                     counts.append(live_counts(
                         p, int(comp.parentid[p]), sc.shape[-1], hr_par
                     ))
-            score_g = torch.stack(scores)  # (G, S, M, H, W)
+            score_g = torch.stack(scores)  # (G, B, S, M, H, W)
             pidx = torch.as_tensor(parts, device=dev)
             nv_y = nv_x = ov_y = ov_x = None
             if not trainable:
-                nvys, nvxs, ovys, ovxs = (np.stack(c) for c in zip(*counts))
+                # (G, 1, S, M[, W]): broadcast over the images
+                nvys, nvxs, ovys, ovxs = (
+                    np.stack(c)[:, None] for c in zip(*counts)
+                )
                 nv_y = torch.as_tensor(nvys, device=dev)
                 nv_x = torch.as_tensor(nvxs, device=dev)
                 # the consumer extents also tell the DT that the shifts
@@ -189,9 +202,9 @@ def tree_min_sum(
                     ov_y, ov_x = ovys, ovxs
             dt_g, ptr_g = shift_distance_transform_2d_packed(
                 score_g,
-                defw_all[pidx][:, None],  # (G, 1, M, 4)
-                dcomp.shift_x[pidx][:, None],  # (G, 1, M)
-                dcomp.shift_y[pidx][:, None],
+                defw_all[pidx][:, None, None],  # (G, 1, 1, M, 4)
+                dcomp.shift_x[pidx][:, None, None],  # (G, 1, 1, M)
+                dcomp.shift_y[pidx][:, None, None],
                 dlen_x=wr_par,
                 dlen_y=hr_par,
                 step=step,
@@ -210,12 +223,12 @@ def tree_min_sum(
     root = part_score(0)
     if 0 in acc:
         root = root + acc.pop(0)
-    root = root + root_bias[None, :, None, None]
-    rootv = root[:, 0]
+    root = root + root_bias[:, None, None]
+    rootv = root[:, :, 0]
     rooti = torch.zeros(rootv.shape, dtype=torch.int32, device=dev)
     for m in range(1, m_total):
-        pred = root[:, m] > rootv
-        rootv = torch.where(pred, root[:, m], rootv)
+        pred = root[:, :, m] > rootv
+        rootv = torch.where(pred, root[:, :, m], rootv)
         rooti = torch.where(pred, m, rooti)
     return rootv, rooti, tables
 
@@ -230,9 +243,11 @@ def _unpack(ptr: torch.Tensor):
 
 
 def _pad_top_k(vals, idx, k, max_det):
-    if k < max_det:  # pad to the static budget
-        vals = torch.cat([vals, vals.new_full((max_det - k,), NEG_INF)])
-        idx = torch.cat([idx, idx.new_zeros(max_det - k)])
+    """Pad (B, k) top-k rows to the static (B, max_det) budget."""
+    if k < max_det:
+        nb = vals.shape[0]
+        vals = torch.cat([vals, vals.new_full((nb, max_det - k), NEG_INF)], 1)
+        idx = torch.cat([idx, idx.new_zeros((nb, max_det - k))], 1)
     return vals, idx
 
 
@@ -249,28 +264,30 @@ def backtrack_merged(
     max_det: int,
 ):
     """Candidate extraction across all buckets of a component plus one
-    level-batched tree walk: one global top-k over the concatenated
+    level-batched tree walk: one top-k per image over the concatenated
     root maps, bucket/scale/coords recovered from static offsets, and
     one pointer-table gather per tree level. Requires all parts on the
-    root grid (ds_total == 0).
+    root grid (ds_total == 0). rootvs/rootis: per bucket (B, S, H, W);
+    tables_list: per bucket {p: (B, S, L, H, W)}.
 
-    Returns (boxes (max_det, P, 4) [x1, y1, x2, y2], scores (max_det,),
-    mixtures (max_det, P) int32, valid (max_det,), coords (bucket,
-    scale, xs (max_det, P), ys)).
+    Returns (boxes (B, max_det, P, 4) [x1, y1, x2, y2], scores
+    (B, max_det), mixtures (B, max_det, P) int32, valid (B, max_det),
+    coords (bucket, scale, xs (B, max_det, P), ys)).
     """
     nb = len(rootvs)
     p_total = comp.nparts
     m_total = comp.maxmix
     dev = rootvs[0].device
     dtype = rootvs[0].dtype
-    s_l = [int(rv.shape[0]) for rv in rootvs]
-    h_l = [int(rv.shape[1]) for rv in rootvs]
-    w_l = [int(rv.shape[2]) for rv in rootvs]
+    nimg = int(rootvs[0].shape[0])
+    s_l = [int(rv.shape[1]) for rv in rootvs]
+    h_l = [int(rv.shape[2]) for rv in rootvs]
+    w_l = [int(rv.shape[3]) for rv in rootvs]
     n_l = [s * h * w for s, h, w in zip(s_l, h_l, w_l)]
     off = np.concatenate([[0], np.cumsum(n_l)]).astype(np.int64)
     ntot = int(off[-1])
 
-    flat = torch.cat([rv.reshape(-1) for rv in rootvs])
+    flat = torch.cat([rv.reshape(nimg, -1) for rv in rootvs], dim=1)
     k = min(max_det, ntot)
     vals, idx = _pad_top_k(*stable_top_k(flat, k), k, max_det)
     valid = vals >= thresh
@@ -288,21 +305,25 @@ def backtrack_merged(
     rem = local % hw
     yi = rem // wc
     xi = rem % wc
-    mi = torch.cat([ri.reshape(-1) for ri in rootis])[idx].long()
+    mi = torch.gather(
+        torch.cat([ri.reshape(nimg, -1) for ri in rootis], dim=1), 1, idx
+    ).long()
 
-    # one flat table buffer: part-major, then bucket-major inside —
-    # entry (p, b, s, l, y, x) lives at
+    # one flat table buffer per image: part-major, then bucket-major
+    # inside — entry (p, b, s, l, y, x) lives at
     # (p-1)*M*ntot + M*off[b] + ((s*M + l)*Hb + y)*Wb + x
     per_part = m_total * ntot
     if p_total > 1:
         t_flat = torch.cat(
             [
-                tables_list[b][p].reshape(-1)
+                tables_list[b][p].reshape(nimg, -1)
                 for p in range(1, p_total)
                 for b in range(nb)
-            ]
+            ],
+            dim=1,
         )
     t_off = m_total * off_arr
+    img = torch.arange(nimg, device=dev)[None, :, None]
 
     xs: List[torch.Tensor] = [None] * p_total
     ys: List[torch.Tensor] = [None] * p_total
@@ -313,18 +334,17 @@ def backtrack_merged(
         parts = levels[d]
         base = torch.as_tensor(
             (np.asarray(parts, np.int64) - 1) * per_part, device=dev
-        )[:, None]
+        )[:, None, None]
         par_x = torch.stack([xs[int(comp.parentid[p])] for p in parts])
         par_y = torch.stack([ys[int(comp.parentid[p])] for p in parts])
         par_m = torch.stack([ms[int(comp.parentid[p])] for p in parts])
         idx_t = (
             base
-            + t_off[None, :]
-            + ((si[None, :] * m_total + par_m) * hc[None, :] + par_y)
-            * wc[None, :]
+            + t_off[None]
+            + ((si[None] * m_total + par_m) * hc[None] + par_y) * wc[None]
             + par_x
-        )  # (G, K)
-        xg, yg, mg = _unpack(t_flat[idx_t])
+        )  # (G, B, K)
+        xg, yg, mg = _unpack(t_flat[img, idx_t])
         for g, p in enumerate(parts):
             xs[p], ys[p], ms[p] = xg[g], yg[g], mg[g]
 
@@ -332,22 +352,22 @@ def backtrack_merged(
     bsc_flat = torch.cat([b_.to(dtype) for b_ in box_scales_list])
     root_scale = bsc_flat[torch.as_tensor(soff[:nb], device=dev)[bid] + si]
 
-    xs_t = torch.stack(xs)  # (P, K)
-    ys_t = torch.stack(ys)
-    ms_t = torch.stack(ms)
-    sz = dcomp.fsize[torch.arange(p_total, device=dev)[:, None], ms_t]
-    sc_b = root_scale[None, :]  # ds_total == 0: one grid for all parts
+    xs_t = torch.stack(xs, dim=-1)  # (B, K, P)
+    ys_t = torch.stack(ys, dim=-1)
+    ms_t = torch.stack(ms, dim=-1)
+    sz = dcomp.fsize[torch.arange(p_total, device=dev), ms_t]  # (B, K, P, 2)
+    sc_b = root_scale[..., None]  # ds_total == 0: one grid for all parts
     x1 = (xs_t.to(dtype) + box_off_x) * sc_b
     y1 = (ys_t.to(dtype) + box_off_y) * sc_b
     x2 = x1 + sz[..., 1].to(dtype) * sc_b - 1
     y2 = y1 + sz[..., 0].to(dtype) * sc_b - 1
-    boxes = torch.stack([x1, y1, x2, y2], dim=-1).transpose(0, 1)
-    mixtures = ms_t.transpose(0, 1).to(torch.int32)
+    boxes = torch.stack([x1, y1, x2, y2], dim=-1)
+    mixtures = ms_t.to(torch.int32)
     coords = (
         bid.to(torch.int32),
         si.to(torch.int32),
-        xs_t.transpose(0, 1).to(torch.int32),
-        ys_t.transpose(0, 1).to(torch.int32),
+        xs_t.to(torch.int32),
+        ys_t.to(torch.int32),
     )
     return boxes, vals, mixtures, valid, coords
 
@@ -367,13 +387,14 @@ def backtrack(
     """Per-bucket candidate extraction and tree walk; parts may sit on
     octave-finer grids (ds_total > 0). Box geometry follows
     detect_fast.m:170-175 (0-based): x1 = (x - padx) * scale,
-    x2 = x1 + sizx*scale - 1. Same return contract as
-    backtrack_merged, with coords (scale, xs, ys)."""
-    s, hr, wr = rootv.shape
+    x2 = x1 + sizx*scale - 1. rootv/rooti (B, S, Hr, Wr), tables
+    {p: (B, S, L, H, W)}. Same return contract as backtrack_merged, with
+    coords (scale, xs, ys)."""
+    nimg, s, hr, wr = rootv.shape
     p_total = comp.nparts
     dtype = rootv.dtype
-    flat = rootv.reshape(-1)
-    k = min(max_det, flat.shape[0])
+    flat = rootv.reshape(nimg, -1)
+    k = min(max_det, flat.shape[1])
     vals, idx = _pad_top_k(*stable_top_k(flat, k), k, max_det)
     valid = vals >= thresh
 
@@ -381,7 +402,8 @@ def backtrack(
     rem = idx % (hr * wr)
     yi = rem // wr
     xi = rem % wr
-    mi = rooti.reshape(-1)[idx].long()
+    mi = torch.gather(rooti.reshape(nimg, -1), 1, idx).long()
+    img = torch.arange(nimg, device=rootv.device)[:, None]
 
     xs: List[torch.Tensor] = [None] * p_total
     ys: List[torch.Tensor] = [None] * p_total
@@ -389,7 +411,9 @@ def backtrack(
     xs[0], ys[0], ms[0] = xi, yi, mi
     for p in range(1, p_total):
         par = int(comp.parentid[p])
-        xs[p], ys[p], ms[p] = _unpack(tables[p][si, ms[par], ys[par], xs[par]])
+        xs[p], ys[p], ms[p] = _unpack(
+            tables[p][img, si, ms[par], ys[par], xs[par]]
+        )
 
     root_scale = box_scales[si].to(dtype)
     ds = comp.ds_total
@@ -397,17 +421,17 @@ def backtrack(
     for p in range(p_total):
         # a part d octaves below the root lives on a 2^d finer grid
         scale = root_scale / float(1 << int(ds[p]))
-        sz = dcomp.fsize[p][ms[p]]  # (max_det, 2) = (fh, fw)
+        sz = dcomp.fsize[p][ms[p]]  # (B, max_det, 2) = (fh, fw)
         x1 = (xs[p].to(dtype) + box_off_x) * scale
         y1 = (ys[p].to(dtype) + box_off_y) * scale
-        x2 = x1 + sz[:, 1].to(dtype) * scale - 1
-        y2 = y1 + sz[:, 0].to(dtype) * scale - 1
+        x2 = x1 + sz[..., 1].to(dtype) * scale - 1
+        y2 = y1 + sz[..., 0].to(dtype) * scale - 1
         boxes.append(torch.stack([x1, y1, x2, y2], dim=-1))
-    boxes = torch.stack(boxes, dim=1)  # (max_det, P, 4)
-    mixtures = torch.stack(ms, dim=1).to(torch.int32)
+    boxes = torch.stack(boxes, dim=2)  # (B, max_det, P, 4)
+    mixtures = torch.stack(ms, dim=2).to(torch.int32)
     coords = (
         si.to(torch.int32),
-        torch.stack(xs, dim=1).to(torch.int32),
-        torch.stack(ys, dim=1).to(torch.int32),
+        torch.stack(xs, dim=2).to(torch.int32),
+        torch.stack(ys, dim=2).to(torch.int32),
     )
     return boxes, vals, mixtures, valid, coords

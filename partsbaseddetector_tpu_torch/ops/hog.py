@@ -65,8 +65,10 @@ def _orientation_units() -> np.ndarray:
 
 
 def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
-    """HOG of an (H, W, 3) f32 image -> (bh-2, bw-2, 32) features."""
-    h, w, _ = im.shape
+    """HOG of (B, H, W, 3) f32 images -> (B, bh-2, bw-2, 32) features.
+    Each image's histogram products have the single image's shapes
+    (ops/resize.py), so an image computes exactly as it does alone."""
+    nb, h, w, _ = im.shape
     bh = cround(h / sbin)
     bw = cround(w / sbin)
     oh, ow = max(bh - 2, 0), max(bw - 2, 0)
@@ -75,14 +77,14 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
 
     # --- gradients on the interior grid, edge-replicated to the visible
     # grid: grad maps cover pixel coords y in [1, h-2], x in [1, w-2]
-    dy = im[2:, 1:-1, :] - im[:-2, 1:-1, :]  # (h-2, w-2, 3)
-    dx = im[1:-1, 2:, :] - im[1:-1, :-2, :]
+    dy = im[:, 2:, 1:-1, :] - im[:, :-2, 1:-1, :]  # (B, h-2, w-2, 3)
+    dx = im[:, 1:-1, 2:, :] - im[:, 1:-1, :-2, :]
     ry = torch.arange(vh - 2, device=dev).clamp(max=h - 3)
     rx = torch.arange(vw - 2, device=dev).clamp(max=w - 3)
-    dy = dy[ry][:, rx]
-    dx = dx[ry][:, rx]
+    dy = dy[:, ry][:, :, rx]
+    dx = dx[:, ry][:, :, rx]
 
-    v3 = dx * dx + dy * dy  # (vh-2, vw-2, 3)
+    v3 = dx * dx + dy * dy  # (B, vh-2, vw-2, 3)
     ci = torch.argmax(v3, dim=-1, keepdim=True)  # first max: R, G, B
     gdx = torch.gather(dx, -1, ci)[..., 0]
     gdy = torch.gather(dy, -1, ci)[..., 0]
@@ -102,30 +104,31 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
     # --- histogram stage: the interior map back on the full pixel frame
     # (border pixels contribute nothing), cells aggregated by two
     # separable strided tent products
-    onehot = F.pad(onehot, (0, 0, 1, 1, 1, 1))  # -> (vh, vw, 18)
+    onehot = F.pad(onehot, (0, 0, 1, 1, 1, 1))  # -> (B, vh, vw, 18)
     my = device_constant(_hist_matrix, bh, vh, sbin, device=dev)
     mx = device_constant(_hist_matrix, bw, vw, sbin, device=dev)
-    tmp = torch.matmul(my, onehot.reshape(vh, vw * NORIENT))
-    hist = torch.matmul(mx, tmp.reshape(bh, vw, NORIENT))  # (bh, bw, 18)
+    tmp = torch.matmul(my, onehot.reshape(nb, vh, vw * NORIENT))
+    hist = torch.matmul(mx, tmp.reshape(nb, bh, vw, NORIENT))  # (B, bh, bw, 18)
 
     # --- block energy and 2x2 neighborhood sums
     half = NORIENT // 2
     norm = torch.sum(torch.square(hist[..., :half] + hist[..., half:]), dim=-1)
-    s2 = norm[:-1, :-1] + norm[:-1, 1:] + norm[1:, :-1] + norm[1:, 1:]
+    s2 = (norm[:, :-1, :-1] + norm[:, :-1, 1:] + norm[:, 1:, :-1]
+          + norm[:, 1:, 1:])
     inv = torch.rsqrt(s2 + reference.HOG_EPS)
-    n1 = inv[1 : 1 + oh, 1 : 1 + ow]
-    n2 = inv[0:oh, 1 : 1 + ow]
-    n3 = inv[1 : 1 + oh, 0:ow]
-    n4 = inv[0:oh, 0:ow]
-    ns = torch.stack([n1, n2, n3, n4], dim=-1)  # (oh, ow, 4)
+    n1 = inv[:, 1 : 1 + oh, 1 : 1 + ow]
+    n2 = inv[:, 0:oh, 1 : 1 + ow]
+    n3 = inv[:, 1 : 1 + oh, 0:ow]
+    n4 = inv[:, 0:oh, 0:ow]
+    ns = torch.stack([n1, n2, n3, n4], dim=-1)  # (B, oh, ow, 4)
 
-    src = hist[1 : 1 + oh, 1 : 1 + ow, :]  # (oh, ow, 18)
+    src = hist[:, 1 : 1 + oh, 1 : 1 + ow, :]  # (B, oh, ow, 18)
     hclamp = torch.clamp(src[..., None] * ns[..., None, :], max=0.2)
     sensitive = 0.5 * hclamp.sum(-1)
-    texture = 0.2357 * hclamp.sum(-2)  # (oh, ow, 4)
+    texture = 0.2357 * hclamp.sum(-2)  # (B, oh, ow, 4)
 
     ssum = src[..., :half] + src[..., half:]
     insens = 0.5 * torch.clamp(ssum[..., None] * ns[..., None, :], max=0.2).sum(-1)
 
-    occl = torch.zeros((oh, ow, 1), dtype=dtype, device=dev)
+    occl = torch.zeros((nb, oh, ow, 1), dtype=dtype, device=dev)
     return torch.cat([sensitive, insens, texture, occl], dim=-1)

@@ -148,10 +148,10 @@ def _pad_feature(
 ) -> torch.Tensor:
     """Apply the meaningful (pady+1, padx+1) padding with the boundary
     occlusion channel (featpyramid.m:36-45), then zero-align to the
-    bucket shape."""
+    bucket shape. feat: (B, h, w, C)."""
     py, px = spec.pady + 1, spec.padx + 1
     f = F.pad(feat, (0, 0, px, px, py, py))
-    ph, pw, _ = f.shape
+    ph, pw = f.shape[1:3]
     dev = f.device
     row = torch.arange(ph, device=dev)[:, None]
     col = torch.arange(pw, device=dev)[None, :]
@@ -181,12 +181,13 @@ def build_pyramid_features(
     im: torch.Tensor, plan: PyramidPlan, spec: ModelSpec
 ) -> List[torch.Tensor]:
     """HOG features for every scale, returned as one padded
-    (S_b, H_b, W_b, flen) stack per bucket. im: (H, W, 3) f32."""
+    (B, S_b, H_b, W_b, flen) stack per bucket. im: (B, H, W, 3) f32."""
     images = _scale_images(im, plan, spec)
     feats = [hog_features(images[s], spec.sbin) for s in range(plan.nscales)]
     return [
         torch.stack(
-            [_pad_feature(feats[s], spec, bucket) for s in bucket.scale_indices]
+            [_pad_feature(feats[s], spec, bucket) for s in bucket.scale_indices],
+            dim=1,
         )
         for bucket in plan.buckets
     ]
@@ -221,8 +222,9 @@ def mask_responses(
 ) -> torch.Tensor:
     """Set response entries outside each (scale, filter) valid extent to
     `neg` so padded regions can never win any downstream max. Inference
-    uses -inf."""
-    s, hr, wr, f = resp.shape
+    uses -inf. resp: (..., S, Hr, Wr, F), the extents broadcast over
+    the leading (image) axes."""
+    hr, wr = resp.shape[-3], resp.shape[-2]
     my = np.arange(hr)[None, :, None] < np.asarray(vh)[:, None, :]  # (S,hr,F)
     mx = np.arange(wr)[None, :, None] < np.asarray(vw)[:, None, :]  # (S,wr,F)
     my = torch.as_tensor(my, device=resp.device)

@@ -6,6 +6,11 @@ their exact weight matrices are built on the host once per
 (src_len, dst_len) pair and applied as a row product then a column
 product. On the card the products run in full f32 (`torch.matmul` with
 TF32 off, which the detector sets).
+
+Images carry a leading image axis, (B, H, W, C). Each image's products
+have the single image's shapes, with B (and the rows of the column
+product) as the batch of one batched product, so a batch of images
+computes each image exactly as it computes alone.
 """
 
 from __future__ import annotations
@@ -50,16 +55,17 @@ def _device_constant(fn, key, device: torch.device) -> torch.Tensor:
 def _apply_separable(
     im: torch.Tensor, wh: torch.Tensor, ww: torch.Tensor
 ) -> torch.Tensor:
-    """(H, W, C) -> (dh, dw, C) via row product then column product."""
-    h, w, c = im.shape
-    out = torch.matmul(wh, im.reshape(h, w * c)).reshape(-1, w, c)
-    # contract width with ww: (dw, W) x (dh, W, C) -> (dh, dw, C)
+    """(B, H, W, C) -> (B, dh, dw, C) via row product then column
+    product."""
+    b, h, w, c = im.shape
+    out = torch.matmul(wh, im.reshape(b, h, w * c)).reshape(b, -1, w, c)
+    # contract width with ww: (dw, W) x (B, dh, W, C) -> (B, dh, dw, C)
     return torch.matmul(ww, out)
 
 
 def resize_image(im: torch.Tensor, scale: float) -> torch.Tensor:
-    """Resize an (H, W, C) f32 image by a scale factor <= 1."""
-    h, w = im.shape[:2]
+    """Resize (B, H, W, C) f32 images by a scale factor <= 1."""
+    h, w = im.shape[1:3]
     dh, dw = cround(h * scale), cround(w * scale)
     dev = im.device
     return _apply_separable(
@@ -70,8 +76,8 @@ def resize_image(im: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def reduce_image(im: torch.Tensor) -> torch.Tensor:
-    """Half-size binomial reduce of an (H, W, C) f32 image."""
-    h, w = im.shape[:2]
+    """Half-size binomial reduce of (B, H, W, C) f32 images."""
+    h, w = im.shape[1:3]
     dev = im.device
     return _apply_separable(
         im,

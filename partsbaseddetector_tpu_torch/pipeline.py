@@ -43,13 +43,14 @@ from .ops.pyramid import (
 
 
 class BucketScores(NamedTuple):
-    """Root scores for one (bucket, component) pair."""
+    """Root scores for one (bucket, component) pair; a batch of images
+    adds a leading image axis to every tensor."""
 
     bucket_index: int
     component: int
-    rootv: torch.Tensor  # (S, Hr, Wr)
-    rooti: torch.Tensor  # (S, Hr, Wr) int32
-    tables: Dict[int, torch.Tensor]
+    rootv: torch.Tensor  # ([B,] S, Hr, Wr)
+    rooti: torch.Tensor  # ([B,] S, Hr, Wr) int32
+    tables: Dict[int, torch.Tensor]  # ([B,] S, L, H, W) int32
 
 
 def make_plan(
@@ -128,8 +129,12 @@ def root_scores(
     fft_spectra: Optional[List[torch.Tensor]] = None,
 ) -> List[BucketScores]:
     """Run HOG pyramid -> responses -> tree DP for every (bucket,
-    component). im: (H, W, 3) on dmodel's device, any real dtype (cast
-    to f32 here, so a uint8 frame computes exactly as its f32 copy).
+    component). im: one (H, W, 3) frame or a (B, H, W, 3) batch on
+    dmodel's device, any real dtype (cast to f32 here, so a uint8 frame
+    computes exactly as its f32 copy). A batch runs as one program with
+    a leading image axis on every map (the JAX package's vmap over
+    images), and each image's scores equal its single-frame scores; a
+    single frame's BucketScores carry no image axis.
     params (optional): trainable pools on the same device (see the
     module docstring). with_tables=False drops the pointer tables.
     remat=True (with params, without tables) recomputes the DP block in
@@ -140,7 +145,7 @@ def root_scores(
     device; without them they are computed (and memoized) on the host
     and uploaded here. response_masks (optional): one (S_b, Hr, Wr)
     bool tensor per bucket (depth_response_masks), applied to every
-    filter; False cells take the masking value, as outside the valid
+    filter and image; False cells take the masking value, as outside the valid
     extents."""
     if engine not in ("spatial", "fourier"):
         raise ValueError(f"unknown conv engine: {engine}")
@@ -149,6 +154,10 @@ def root_scores(
             "training with the Fourier engine is not ported yet"
         )
     spec = packed.spec
+    single = im.dim() == 3
+    if single:
+        im = im[None]
+    nimg = im.shape[0]
     with torch.no_grad():
         feats = build_pyramid_features(im.to(torch.float32), plan, spec)
     if engine == "fourier" and fft_spectra is None:
@@ -162,14 +171,16 @@ def root_scores(
     vhs: List[np.ndarray] = []
     vws: List[np.ndarray] = []
     for b, bucket in enumerate(plan.buckets):
+        # the conv takes the B*S_b maps image-major; the Fourier engine
+        # keeps the image axis and broadcasts its spectra over it
+        feat = feats[b].reshape(-1, *feats[b].shape[2:])
         if params is not None:
-            resp = filter_responses(feats[b], params["filters"])
+            resp = filter_responses(feat, params["filters"])
         elif engine == "fourier":
-            resp = filter_responses_fft(
-                feats[b], dmodel.filters, fft_spectra[b]
-            )
+            resp = filter_responses_fft(feats[b], dmodel.filters, fft_spectra[b])
         else:
-            resp = filter_responses_infer(feats[b], dmodel.filters)
+            resp = filter_responses_infer(feat, dmodel.filters)
+        resp = resp.reshape(nimg, -1, *resp.shape[-3:])
         vh, vw = response_valid_extents(
             plan, bucket, packed.filter_sizes, spec.border
         )
@@ -217,6 +228,9 @@ def root_scores(
                 rootv, rooti, tables = run(resps, tensors)
                 if not with_tables:
                     tables = {}
+            if single:
+                rootv, rooti = rootv[0], rooti[0]
+                tables = {p: t[0] for p, t in tables.items()}
             out.append(BucketScores(b, c, rootv, rooti, tables))
     return out
 

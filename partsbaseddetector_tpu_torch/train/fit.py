@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models.model import Model, pack_model
+from ..utils.device import resolve_device
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .sgd import apply_params, batch_root_masks, make_train_step, model_params
 
@@ -31,9 +32,10 @@ def fit(
     checkpoint_every: int = 5,
     seed: int = 0,
     verbose: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[Model, List[float]]:
-    """Train by batched subgradient descent on `device`.
+    """Train by batched subgradient descent on `device` (the card unless
+    the caller asks for the CPU).
 
     images: same-shape (H, W, 3) arrays; labels: +-1; bboxes (optional):
     per-image GT boxes enabling the latent-positive constraint;
@@ -42,6 +44,7 @@ def fit(
     checkpoint_dir if a checkpoint exists there; the batch order of an
     epoch comes from np.random.RandomState(seed), as in the JAX package.
     """
+    device = resolve_device(device)
     packed = pack_model(model)
     imsize = images[0].shape[:2]
     latent = bboxes is not None

@@ -31,11 +31,13 @@ import torch
 from ..models.convert import PARAM_KEYS, params_from_jax, params_to_numpy
 from ..models.model import Model, PackedModel, pack_model, to_device
 from ..pipeline import build_root_masks, make_plan, max_of_scores, root_scores
+from ..utils.device import resolve_device
 
 
-def model_params(model: Model, device="cpu") -> dict:
+def model_params(model: Model, device="cuda") -> dict:
     """The trainable pools as f32 leaf tensors that require grad
-    (model2vec analog)."""
+    (model2vec analog), on `device` (the card unless the caller asks
+    for the CPU)."""
     packed = pack_model(model)
     # a single-part model has no deformations; keep one zero row so the
     # gathers stay valid
@@ -187,11 +189,12 @@ def batch_root_masks(
     imsize: Tuple[int, int],
     bboxes,
     overlap: float = 0.5,
-    device="cpu",
+    device="cuda",
 ) -> List[torch.Tensor]:
     """Per-example root masks for the latent loss. bboxes: (B, 4) GT
     bounding boxes (use the whole image for negatives). Returns a list
     of (B, S_b, Hr, Wr) bool tensors on `device`, one per bucket."""
+    device = resolve_device(device)
     plan = make_plan(packed, imsize)
     per_image = [
         build_root_masks(packed, plan, np.asarray(bb), overlap) for bb in bboxes

@@ -10,7 +10,8 @@ within 1e-5 * sum|g| per source and 1e-5 * sum|g*d^2|, sum|g*d| per map;
 the adaptive-window DT (K5) bit for bit against its plain version, and
 against K1 inside out_valid. Detect with the window DT gives the default
 detect's candidates bit for bit; the Fourier and RGB-D detectors give the
-CPU path's candidates.
+CPU path's candidates. The transpose (T2) is exact for float32 and int32,
+and so is its gradient; the serving APIs give detect's candidates.
 """
 
 import os
@@ -262,3 +263,59 @@ def test_fourier_and_rgbd_detect_on_cuda_match_cpu(cuda, kind):
     if depth is not None:
         np.testing.assert_array_equal(got.depth_keep, want.depth_keep)
     _same_candidates(got.to_candidates(), want.to_candidates(), 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize(
+    "shape",
+    [(1, 1, 1), (3, 33, 31), (80, 126, 166), (2, 5, 40, 64), (70000, 3, 2)],
+)
+def test_transpose_kernel_matches_plain(cuda, shape, dtype):
+    """T2 bit for bit, including ragged tiles and more maps than one
+    grid axis of 65,535 blocks would hold."""
+    from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    if dtype == torch.float32:
+        x = torch.randn(shape, generator=gen)
+        x.view(-1)[::7] = -torch.inf
+    else:
+        x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, dtype=torch.int32)
+    x = x.to(cuda)
+    before = tc.launches
+    got = tc.transpose_last2(x)
+    assert tc.launches == before + 1
+    want = tc.transpose_last2_plain(x)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_transpose_kernel_gradient(cuda):
+    from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 37, 45), generator=gen).to(cuda).requires_grad_()
+    cot = torch.randn((4, 45, 37), generator=gen).to(cuda)
+    before = tc.launches
+    (tc.transpose_last2(x) * cot).sum().backward()
+    assert tc.launches == before + 2  # forward and backward
+    assert torch.equal(x.grad, tc.transpose_last2_plain(cot))
+
+
+def test_serving_apis_on_cuda_match_detect(cuda):
+    """detect_batch, detect_many (pipelined, microbatch 3 with padding)
+    and detect_stream on the card give detect's candidates; the packed
+    readback is exact."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector
+
+    model, im = _person_frame()
+    det = PartsBasedDetector(model, max_detections=16, buckets_per_octave=2,
+                             device=cuda)
+    ims = [np.clip(im.astype(np.int32) + i, 0, 255).astype(np.uint8) for i in range(4)]
+    singles = [det.detect(x) for x in ims]
+    for got in (det.detect_batch(ims), det.detect_many(ims, prefetch=2),
+                list(det.detect_stream(ims, lookahead=2, workers=1))):
+        for g, s in zip(got, singles):
+            _same_candidates(g, s)
+    for g, s in zip(det.detect_many(ims, microbatch=3), singles):
+        _same_candidates(g, s, 1e-5 * max(1.0, abs(s[0].score)), 1e-4)

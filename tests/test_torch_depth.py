@@ -99,7 +99,8 @@ def test_gated_detect_matches_jax():
     depth = _split_depth(im.shape[:2])
     want = JaxDetector(jm, max_detections=96, depth_gate=jdepth.DepthGate(**GATE))
     got = PartsBasedDetector(
-        model_from_jax(jm), max_detections=96, depth_gate=tdepth.DepthGate(**GATE)
+        model_from_jax(jm), max_detections=96, depth_gate=tdepth.DepthGate(**GATE),
+        device="cpu",
     )
     gated = got.detect_dense(im, depth).to_candidates()
     _assert_same(gated, want.detect_dense(im, depth).to_candidates())
@@ -111,7 +112,7 @@ def test_gated_detect_matches_jax():
 def test_unknown_depth_gates_nothing():
     model = model_from_jax(_model(seed=11))
     im = (np.random.RandomState(1).rand(120, 140, 3) * 255).astype(np.float32)
-    det = PartsBasedDetector(model, max_detections=64,
+    det = PartsBasedDetector(model, max_detections=64, device="cpu",
                              depth_gate=tdepth.DepthGate(**GATE))
     plain = det.detect_dense(im).to_candidates()
     gated = det.detect_dense(im, np.zeros(im.shape[:2], np.float32)).to_candidates()
@@ -123,7 +124,7 @@ def test_detect_applies_gate_and_candidate_filter():
     im = (np.random.RandomState(2).rand(160, 180, 3) * 255).astype(np.float32)
     depth = np.full(im.shape[:2], 2.0, dtype=np.float32)
     depth[:, 90:] = 6.0  # plausible at the finest scales only
-    det = PartsBasedDetector(model_from_jax(jm), max_detections=64,
+    det = PartsBasedDetector(model_from_jax(jm), max_detections=64, device="cpu",
                              depth_gate=tdepth.DepthGate(**GATE))
     cands = det.detect(im, depth)
     dense = det.detect_dense(im, depth).to_candidates()
@@ -189,8 +190,9 @@ def _single_scale_fixture(seed):
 def test_device_filter_matches_host_filter_and_jax():
     jm, im, depth = _single_scale_fixture(21)
     model = model_from_jax(jm)
-    det_h = PartsBasedDetector(model, max_detections=64)
-    det_d = PartsBasedDetector(model, max_detections=64, device_depth_filter=True)
+    det_h = PartsBasedDetector(model, max_detections=64, device="cpu")
+    det_d = PartsBasedDetector(model, max_detections=64, device_depth_filter=True,
+                               device="cpu")
     want = det_h.detect(im, depth)
     got = det_d.detect(im, depth)
     assert len(det_h.detect(im)) > len(want) > 0, "fixture must reject some"
@@ -216,12 +218,12 @@ def test_uint16_mm_depth_matches_float_meters(stage):
         depth[:14, 56:] = 9.0
         kw["depth_gate"] = tdepth.DepthGate(object_width_m=0.5, fx=40.0, tolerance=0.9)
     mm = np.round(depth * 1000).astype(np.uint16)
-    det = PartsBasedDetector(model_from_jax(jm), max_detections=64, **kw)
+    det = PartsBasedDetector(model_from_jax(jm), max_detections=64, device="cpu", **kw)
     _assert_same(det.detect(im, mm), det.detect(im, depth), exact=True)
 
 
 def test_bad_depth_shape_raises():
     jm, im, _ = _single_scale_fixture(25)
-    det = PartsBasedDetector(model_from_jax(jm), device_depth_filter=True)
+    det = PartsBasedDetector(model_from_jax(jm), device_depth_filter=True, device="cpu")
     with pytest.raises(ValueError):
         det.detect(im, np.ones((64, 72, 1), np.float32))

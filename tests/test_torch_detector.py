@@ -69,7 +69,7 @@ def test_uint8_and_float32_frames_give_identical_candidates():
     model = model_from_jax(make_synthetic_model(nparts=4, nmix=2, sbin=8, seed=2))
     model.thresh = -1e9
     im = (np.random.RandomState(3).rand(61, 77, 3) * 255).astype(np.uint8)
-    det = PartsBasedDetector(model, max_detections=32)
+    det = PartsBasedDetector(model, max_detections=32, device="cpu")
     a = det.detect(im)
     b = det.detect(im.astype(np.float32))
     assert len(a) == len(b) == 32
@@ -117,7 +117,7 @@ def test_npz_round_trip(tmp_path):
         (dict(rerank_fp32=True), NotImplementedError),
         (dict(border_mode="same"), ValueError),
         (dict(dtype=torch.float16), NotImplementedError),
-        (dict(nms_overlap=0.5), NotImplementedError),
+        (dict(conv_engine="fourier", dtype=torch.bfloat16), NotImplementedError),
     ],
 )
 def test_options_outside_the_slice_raise(kwargs, error):
@@ -129,9 +129,34 @@ def test_depth_input_raises_and_tf32_is_off():
     """A depth map must be (H, W); the RGB-D options turn TF32 off like
     every detector."""
     model = model_from_jax(make_synthetic_model(nparts=3, nmix=2, seed=1))
-    det = PartsBasedDetector(model, device_depth_filter=True)
+    det = PartsBasedDetector(model, device_depth_filter=True, device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     im = np.zeros((48, 48, 3), np.uint8)
     with pytest.raises(ValueError):
         det.detect(im, depth=np.ones((48, 48, 3), np.float32))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Every entry point runs on CUDA unless the caller asks for the
+    CPU: without a CUDA device the default raises at once, and
+    device="cpu" works."""
+    from partsbaseddetector_tpu_torch.models.convert import params_from_jax
+    from partsbaseddetector_tpu_torch.train import batch_root_masks, fit, model_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = model_from_jax(make_synthetic_model(nparts=3, nmix=1, sbin=8, seed=1))
+    im = np.zeros((48, 48, 3), np.uint8)
+    for call in (
+        lambda: PartsBasedDetector(model),
+        lambda: model_params(model),
+        lambda: params_from_jax({"filters": 0, "defs": 0, "biases": 0}),
+        lambda: batch_root_masks(tpack(model), (48, 48), [[0, 0, 47, 47]]),
+        lambda: fit(model, [im], [1.0], epochs=1, batch_size=1),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
+            call()
+    det = PartsBasedDetector(model, device="cpu")
+    assert det.device == torch.device("cpu")
+    assert isinstance(det.detect(im), list)
+    assert model_params(model, device="cpu")["filters"].device.type == "cpu"

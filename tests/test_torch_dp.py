@@ -61,13 +61,15 @@ def _parent_live(comp, p, vhs, vws, b, bpo, s, shape):
 
 
 def _run_both(jp, tp, dm, plan, resps, vhs, vws, b, bpo):
+    """The JAX DP on one image's stacks and the port's on a batch of
+    one (a leading image axis)."""
     comp = jp.components[0]
     jr = jdp.tree_min_sum(
         [jnp.asarray(r) for r in resps], comp, valid_extents=(vhs, vws),
         bucket_index=b, buckets_per_octave=bpo,
     )
     tr = tdp.tree_min_sum(
-        [torch.from_numpy(r) for r in resps], tp.components[0],
+        [torch.from_numpy(r)[None] for r in resps], tp.components[0],
         dm.components[0], valid_extents=(vhs, vws), bucket_index=b,
         buckets_per_octave=bpo,
     )
@@ -76,7 +78,8 @@ def _run_both(jp, tp, dm, plan, resps, vhs, vws, b, bpo):
 
 def _assert_dp_equal(comp, jr, tr, vhs, vws, b, bpo):
     jv, ji, jt = (np.asarray(jr[0]), np.asarray(jr[1]), jr[2])
-    tv, ti, tt = tr[0].numpy(), tr[1].numpy(), tr[2]
+    tv, ti = tr[0][0].numpy(), tr[1][0].numpy()
+    tt = {p: t[0] for p, t in tr[2].items()}
     np.testing.assert_array_equal(tv, jv)  # -inf included
     assert np.isfinite(tv).any()
     live = np.isfinite(jv)
@@ -123,7 +126,8 @@ def test_backtrack_merged_matches_jax():
         [o[2][2] for o in outs], tp.components[0], dm.components[0],
         [torch.from_numpy(s) for s in scales], **kw,
     )
-    boxes, vals, mix, valid, coords = got
+    boxes, vals, mix, valid = (x[0] for x in got[:4])
+    coords = [c[0] for c in got[4]]
     assert bool(valid.all()) and vals.shape == (40,)
     np.testing.assert_array_equal(vals.numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(boxes.numpy(), np.asarray(want[0]))
@@ -156,9 +160,9 @@ def test_octave_offset_dp_and_backtrack_match_jax():
         torch.from_numpy(scales), **kw,
     )
     for g, w in zip(got[:4], want[:4]):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
     for g, w in zip(got[4], want[4]):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
 
 
 def test_stable_top_k_keeps_index_order_on_ties():

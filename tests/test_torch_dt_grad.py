@@ -213,13 +213,15 @@ def test_tree_min_sum_with_tensors_matches_jax():
         jloss, argnums=(0, 1), has_aux=True
     )([jnp.asarray(r) for r in resps], jparams)
 
-    tparams = params_from_jax(model_params(jm))
+    tparams = params_from_jax(model_params(jm), device="cpu")
     tres = [torch.tensor(r, requires_grad=True) for r in resps]
     dm = to_device(tp, "cpu")
     rv, ri, tables = tdp.tree_min_sum(
-        tres, tp.components[0], dm.components[0], valid_extents=(vhs, vws),
-        bucket_index=b, tensors=tp.components[0].tensors(tparams),
+        [r[None] for r in tres], tp.components[0], dm.components[0],
+        valid_extents=(vhs, vws), bucket_index=b,
+        tensors=tp.components[0].tensors(tparams),
     )
+    rv = rv[0]  # a batch of one image
     assert sorted(tables) == [1, 2, 3]
     np.testing.assert_allclose(rv.detach().numpy(), np.asarray(jrv), rtol=1e-6)
     assert np.isfinite(rv.detach().numpy()).all()
@@ -237,7 +239,7 @@ def test_component_tensors_match_jax():
     jp = pack_model(jm)
     tp = tpack(model_from_jax(jm))
     jparams = model_params(jm)
-    tparams = params_from_jax(jparams)
+    tparams = params_from_jax(jparams, device="cpu")
     for want, got in zip(jp.components[0].tensors(jparams),
                          tp.components[0].tensors(tparams)):
         np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))

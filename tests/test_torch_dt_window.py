@@ -224,7 +224,7 @@ def test_window_detect_equals_default_detect(bpo, border, monkeypatch):
     im = (np.random.RandomState(bpo).rand(90, 110, 3) * 255).astype(np.uint8)
     det = PartsBasedDetector(
         model_from_jax(jm), max_detections=48, buckets_per_octave=bpo,
-        border_mode=border,
+        border_mode=border, device="cpu",
     )
     want = det.detect_dense(im)
     monkeypatch.setenv("PBD_DT_WINDOW", "1")
@@ -244,7 +244,9 @@ def test_window_detect_matches_jax_detector(monkeypatch):
     jm.thresh = -1e9
     want = JaxDetector(jm, max_detections=32).detect(im)
     monkeypatch.setenv("PBD_DT_WINDOW", "1")
-    got = PartsBasedDetector(model_from_jax(jm), max_detections=32).detect(im)
+    got = PartsBasedDetector(
+        model_from_jax(jm), max_detections=32, device="cpu"
+    ).detect(im)
     assert len(got) == len(want) == 32
     for g, w in zip(got, want):
         assert abs(g.score - w.score) < 2e-3

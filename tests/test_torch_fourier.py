@@ -91,7 +91,8 @@ def test_fourier_detect_matches_jax_fourier_detector():
     jm = _model()
     want = JaxDetector(jm, max_detections=64, conv_engine="fourier").detect(_image())
     got = PartsBasedDetector(
-        model_from_jax(jm), max_detections=64, conv_engine="fourier"
+        model_from_jax(jm), max_detections=64, conv_engine="fourier",
+        device="cpu",
     ).detect(_image())
     assert len(got) == len(want) == 64
     for g, w in zip(got, want):
@@ -103,7 +104,7 @@ def test_fourier_detect_matches_jax_fourier_detector():
 
 def test_fourier_detect_matches_spatial_detect():
     model = model_from_jax(_model())
-    kw = dict(max_detections=64, buckets_per_octave=3)
+    kw = dict(max_detections=64, buckets_per_octave=3, device="cpu")
     fourier = PartsBasedDetector(model, conv_engine="fourier", **kw)
     a = fourier.detect_dense(_image())
     b = PartsBasedDetector(model, **kw).detect_dense(_image())

@@ -3,7 +3,8 @@
 Resampling and HOG sum f32 products in another order than XLA (and the
 rsqrt may round differently), so features agree to 1e-5; the plan, the
 valid extents and the -inf masking are integer/boolean logic and must be
-identical.
+identical. The port's ops take a leading image axis: a batch of one
+here.
 """
 
 import dataclasses
@@ -31,14 +32,14 @@ def _image(seed, h, w):
 @pytest.mark.parametrize("h,w", [(37, 45), (64, 80), (41, 29)])
 def test_resize_and_reduce_match_jax(h, w):
     im = _image(h, h, w)
-    t = torch.from_numpy(im)
+    t = torch.from_numpy(im)[None]
     for scale in (0.87, 0.5):
         np.testing.assert_allclose(
-            tresize.resize_image(t, scale).numpy(),
+            tresize.resize_image(t, scale)[0].numpy(),
             np.asarray(jresize.resize_image(im, scale)), rtol=1e-5, atol=1e-3,
         )
     np.testing.assert_allclose(
-        tresize.reduce_image(t).numpy(), np.asarray(jresize.reduce_image(im)),
+        tresize.reduce_image(t)[0].numpy(), np.asarray(jresize.reduce_image(im)),
         rtol=1e-5, atol=1e-3,
     )
 
@@ -46,7 +47,7 @@ def test_resize_and_reduce_match_jax(h, w):
 @pytest.mark.parametrize("h,w,sbin", [(64, 80, 8), (53, 71, 8), (45, 38, 4)])
 def test_hog_features_match_jax(h, w, sbin):
     im = _image(h + w, h, w)
-    got = thog.hog_features(torch.from_numpy(im), sbin).numpy()
+    got = thog.hog_features(torch.from_numpy(im)[None], sbin)[0].numpy()
     want = np.asarray(jhog.hog_features(im, sbin))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -58,7 +59,7 @@ def test_hog_strongest_channel_first_wins_ties():
     rng = np.random.RandomState(4)
     g = (rng.rand(40, 48, 1) * 255).astype(np.float32)
     im = np.concatenate([g, g, g], axis=2)
-    got = thog.hog_features(torch.from_numpy(im), 8).numpy()
+    got = thog.hog_features(torch.from_numpy(im)[None], 8)[0].numpy()
     want = np.asarray(jhog.hog_features(im, 8))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -82,9 +83,9 @@ def test_pyramid_features_match_jax(border, h, w, bpo):
     assert len(jplan.scales) == len(tplan.scales)
     im = _image(7, h, w)
     want = jpyr.build_pyramid_features(im, jplan, jp.spec)
-    got = tpyr.build_pyramid_features(torch.from_numpy(im), tplan, tp.spec)
+    got = tpyr.build_pyramid_features(torch.from_numpy(im)[None], tplan, tp.spec)
     assert len(got) == len(want)
-    for g, wnt in zip(got, want):
+    for g, wnt in zip((g[0] for g in got), want):
         assert g.shape == wnt.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=1e-5, atol=1e-5)
 

@@ -67,7 +67,7 @@ def _args(pkg, packed, latent, images, labels):
             return (jnp.asarray(images), masks, jnp.asarray(labels))
         return (jnp.asarray(images), jnp.asarray(labels))
     if latent:
-        masks = tsgd.batch_root_masks(packed, IMSIZE, BOXES, OVERLAP)
+        masks = tsgd.batch_root_masks(packed, IMSIZE, BOXES, OVERLAP, device="cpu")
         return (torch.from_numpy(images), masks, labels)
     return (torch.from_numpy(images), labels)
 
@@ -83,7 +83,7 @@ def test_loss_and_grads_match_jax(setup, latent, want):
 
     loss_fn = tsgd.make_loss_fn(tp, IMSIZE, latent=latent)
     targs = _args("torch", tp, latent, images, labels)
-    tparams = params_from_jax(jparams)
+    tparams = params_from_jax(jparams, device="cpu")
     whole = loss_fn(tparams, *targs)  # the whole batch's graph at once
     whole.backward()
     np.testing.assert_allclose(float(whole.detach()), want, atol=1e-5)
@@ -105,7 +105,7 @@ def test_three_train_steps_match_jax(setup, latent):
     jparams = jsgd.model_params(jm)
     jstate = jopt.init(jparams)
     tstep, make_opt = tsgd.make_train_step(tp, IMSIZE, latent=latent)
-    tparams = params_from_jax(jparams)
+    tparams = params_from_jax(jparams, device="cpu")
     topt = make_opt(tparams.values())
     jargs = _args("jax", jp, latent, images, labels)
     targs = _args("torch", tp, latent, images, labels)
@@ -135,7 +135,7 @@ def test_remat_gives_the_same_grads(setup):
     masks = tpipe.build_root_masks(tp, plan, BOXES[0], OVERLAP)
     got = []
     for remat in (False, True):
-        tparams = params_from_jax(jsgd.model_params(jm))
+        tparams = params_from_jax(jsgd.model_params(jm), device="cpu")
         s = tpipe.max_root_score(
             torch.from_numpy(images[0]), tp, dm, plan, tparams,
             root_masks=masks, remat=remat,
@@ -153,10 +153,10 @@ def test_apply_params_round_trip(setup):
     carries the pools both ways between the packages."""
     jm, jp, tp, _, _ = setup
     jparams = jsgd.model_params(jm)
-    tparams = params_from_jax(jparams)
+    tparams = params_from_jax(jparams, device="cpu")
     assert all(v.requires_grad and v.is_leaf and v.dtype == torch.float32
                for v in tparams.values())
-    for k, v in tsgd.model_params(model_from_jax(jm)).items():
+    for k, v in tsgd.model_params(model_from_jax(jm), device="cpu").items():
         assert torch.equal(v, tparams[k])
     with torch.no_grad():
         for v in tparams.values():
@@ -184,7 +184,7 @@ def test_root_masks_match_jax(setup):
                          tpipe.build_root_masks(tp, plan_t, bbox, 0.4)):
         np.testing.assert_array_equal(got, want)
     jb = jsgd.batch_root_masks(jp, IMSIZE, BOXES, OVERLAP)
-    tb = tsgd.batch_root_masks(tp, IMSIZE, BOXES, OVERLAP)
+    tb = tsgd.batch_root_masks(tp, IMSIZE, BOXES, OVERLAP, device="cpu")
     assert len(jb) == len(tb)
     for want, got in zip(jb, tb):
         assert got.dtype == torch.bool and got.any()
@@ -197,7 +197,7 @@ def test_fourier_engine_with_params_raises(setup):
     with pytest.raises(NotImplementedError):
         tpipe.root_scores(
             torch.from_numpy(images[0]), tp, to_device(tp, "cpu"), plan,
-            params=tsgd.model_params(model_from_jax(jm)), engine="fourier",
+            params=tsgd.model_params(model_from_jax(jm), device="cpu"), engine="fourier",
         )
 
 
@@ -210,13 +210,13 @@ def test_fit_with_checkpoint_and_resume(tmp_path):
     ckpt = str(tmp_path / "ckpt")
     trained, history = fit(
         model, images, labels, epochs=2, batch_size=4,
-        checkpoint_dir=ckpt, checkpoint_every=1,
+        checkpoint_dir=ckpt, checkpoint_every=1, device="cpu",
     )
     assert len(history) == 2 and np.isfinite(history).all()
     trained.validate()
     assert not np.array_equal(trained.biases, model.biases)
     # the checkpoint holds the trained pools and the optimizer's momentum
-    params = tsgd.model_params(model)
+    params = tsgd.model_params(model, device="cpu")
     opt = tsgd.sgd_momentum(params.values())
     params, opt, epoch = tckpt.restore_checkpoint(ckpt, params, opt)
     assert epoch == 2
@@ -225,6 +225,7 @@ def test_fit_with_checkpoint_and_resume(tmp_path):
     # resume: a fresh fit picks up at epoch 2 and returns immediately
     again, history2 = fit(
         model, images, labels, epochs=2, batch_size=4, checkpoint_dir=ckpt,
+        device="cpu",
     )
     assert history2 == []
     np.testing.assert_array_equal(again.biases, trained.biases)
@@ -239,11 +240,12 @@ def test_fit_latent_resume_continues_from_the_checkpoint(tmp_path):
     rng = np.random.RandomState(1)
     images = [(rng.rand(80, 80, 3) * 255).astype(np.float32) for _ in range(4)]
     labels = [1.0, -1.0, 1.0, -1.0]
-    kw = dict(bboxes=list(BOXES), overlap=OVERLAP, batch_size=2, seed=3)
+    kw = dict(bboxes=list(BOXES), overlap=OVERLAP, batch_size=2, seed=3,
+              device="cpu")
     ckpt = str(tmp_path / "ckpt")
     _, h1 = fit(model, images, labels, epochs=1, checkpoint_dir=ckpt,
                      checkpoint_every=1, **kw)
-    params = tsgd.model_params(model)
+    params = tsgd.model_params(model, device="cpu")
     step, make_opt = tsgd.make_train_step(tpack(model), IMSIZE, latent=True)
     opt = make_opt(params.values())
     assert tckpt.restore_checkpoint(str(tmp_path / "none"), params, opt) is None
@@ -254,7 +256,7 @@ def test_fit_latent_resume_continues_from_the_checkpoint(tmp_path):
                            checkpoint_every=1, **kw)
     assert len(h1) == 1 and len(h2) == 1 and np.isfinite(h1 + h2).all()
 
-    masks = tsgd.batch_root_masks(tpack(model), IMSIZE, BOXES, OVERLAP)
+    masks = tsgd.batch_root_masks(tpack(model), IMSIZE, BOXES, OVERLAP, device="cpu")
     order = np.random.RandomState(3).permutation(4)
     losses = []
     for i in (0, 2):
