@@ -79,6 +79,19 @@ script exits non-zero without the final line):
                  at 120x160, the device keep mask equal to the host
                  part_nms on 8 VGA frames, part_nms_device device ms
                  (profiler) and event ms per image at batch 1 and 8
+ 17. conv_proto  T1's port on the JAX tool's seeded default inputs at toh
+                 1, 2, 4, 8: within 1e-5 * sum|x*w| of its plain version
+                 and equal to K2 bit for bit; ms beside K2, conv2d and
+                 plain; one run of its harness (python -m
+                 partsbaseddetector_tpu_torch.tools.conv_proto)
+ 18. hybrid      person26 VGA with dtype=bfloat16 (the fp32 re-rank): K1,
+                 K2 and T2 launched, deterministic, ms/image beside f32 in
+                 turns, the CPU path's candidates at 120x160, the JAX
+                 bench's rerank parity at 240x320, the f32 re-rank equal
+                 to plain f32, a profile and the re-score stage's share
+ 19. hybrid_serving  detect_many(microbatch=8) with bf16 over config 4's 64
+                 frames: launches, images/s beside f32 in turns, the first
+                 8 frames equal to per-frame detect
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -123,19 +136,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+# the port's CUDA-event timer, cuda_ms(fn, reps=5): the mean device ms
+# of fn() over reps calls after a warm-up (utils/profiling.py), bound by
+# main() once the package imports
+cuda_ms = None
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -224,20 +228,25 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     yargs, _ = case("p26_y", g_s_m, 126, 166, 126, nv=(120, 126))
     xargs, xaux = case("p26_x_aux", g_s_m, 166, 126, 166, aux=True,
                        nv=(160, 166))
-    ms = cuda_ms(lambda: dt_cuda.dt1d(*yargs[:4], 126, 1, nvalid=yargs[4]))
-    ms += cuda_ms(lambda: dt_cuda.dt1d(*xargs[:4], 166, 1, nvalid=xargs[4],
-                                       aux=xaux))
-    plain = cuda_ms(lambda: dt_cuda.dt1d_plain(*yargs, 126, 1), reps=3)
-    plain += cuda_ms(lambda: dt_cuda.dt1d_plain(*xargs, 166, 1, aux=xaux),
-                     reps=3)
+    ms_y = cuda_ms(lambda: dt_cuda.dt1d(*yargs[:4], 126, 1, nvalid=yargs[4]))
+    ms_x = cuda_ms(lambda: dt_cuda.dt1d(*xargs[:4], 166, 1, nvalid=xargs[4],
+                                        aux=xaux))
+    plain_y = cuda_ms(lambda: dt_cuda.dt1d_plain(*yargs, 126, 1), reps=3)
+    plain_x = cuda_ms(lambda: dt_cuda.dt1d_plain(*xargs, 166, 1, aux=xaux),
+                      reps=3)
+    ms, plain = ms_y + ms_x, plain_y + plain_x
     work = [dt_work(yargs[0], yargs[4], 126), dt_work(xargs[0], xargs[4], 166, xaux)]
     bnd = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    # the x pass alone: K1 on the transposed map with aux, the K3 port
+    xpass = {"max_abs_err": errs[-1], "ms": ms_x, "plain_ms": plain_x,
+             **bound(*work[1]), "library_ms": None}
     log("dt1d", cases=len(errs), exact=True, max_abs_err=max(errs),
         shape="y(80,126,166)+x_aux(80,166,126)", ms=f"{ms:.4f}",
         plain_ms=f"{plain:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
-        bound_by=bnd["bound_by"], library_ms=None)
+        bound_by=bnd["bound_by"], library_ms=None, x_pass_ms=f"{ms_x:.4f}",
+        x_pass_plain_ms=f"{plain_x:.4f}", x_pass_bound_ms=f"{xpass['bound_ms']:.4f}")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain, **bnd,
-            "library_ms": None}
+            "library_ms": None}, xpass
 
 
 def check_conv(torch, conv, conv_cuda, gen) -> dict:
@@ -311,13 +320,13 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
     im = torch.randint(0, 256, (480, 640, 3), generator=gen,
                        dtype=torch.uint8).numpy()
     det = pbd.PartsBasedDetector(model, buckets_per_octave=bpo, device=DEVICE)
-    dt_cuda.launches = 0
+    dt_cuda.launches = dt_cuda.aux_launches = 0
     conv_cuda.launches = 0
     tc.launches = 0
     first = det.detect(im)
     torch.cuda.synchronize()
-    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches,
-              "transpose": tc.launches}
+    counts = {"dt1d": dt_cuda.launches, "dt1d_aux": dt_cuda.aux_launches,
+              "conv": conv_cuda.launches, "transpose": tc.launches}
     if min(counts.values()) <= 0:
         raise AssertionError(f"person26: a kernel was not launched: {counts}")
     if not first or not all(np.isfinite(c.score) for c in first):
@@ -344,8 +353,8 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
         raise AssertionError("person26: CUDA and CPU paths differ at 120x160")
     log("person26", imsize="480x640", buckets_per_octave=bpo,
         candidates=len(first), top_score=f"{first[0].score:.4f}",
-        dt1d_launches=counts["dt1d"], conv_launches=counts["conv"],
-        transpose_launches=counts["transpose"],
+        dt1d_launches=counts["dt1d"], dt1d_xpass_launches=counts["dt1d_aux"],
+        conv_launches=counts["conv"], transpose_launches=counts["transpose"],
         deterministic=True, cpu_match_120x160=f"{len(want)} candidates",
         ms_per_image_median=f"{ms:.3f}",
         ms_all=",".join(f"{t:.3f}" for t in times), card=f"'{card}'")
@@ -1019,18 +1028,11 @@ def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
     det.detect_many(frames[:8], microbatch=8)  # warm-up: plans, allocator
     det.detect_many(frames[:8], prefetch=6, readback_top=64)
 
-    def timed(run):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     # the main path, counts at 0 just before it and read just after;
     # then the other two paths, and the same three again (in turns)
     torch.cuda.reset_peak_memory_stats()
     dt_cuda.launches = conv_cuda.launches = tc.launches = 0
-    got8, sec = timed(lambda: det.detect_many(frames, microbatch=8))
+    got8, sec = timed_run(torch, lambda: det.detect_many(frames, microbatch=8))
     counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches,
               "transpose": tc.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -1038,12 +1040,12 @@ def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
         raise AssertionError(f"serving: a kernel was not launched: {counts}")
     mb8_ips = [64 / sec]
     dt_cuda.launches = conv_cuda.launches = tc.launches = 0
-    pipe, sec = timed(lambda: det.detect_many(frames, prefetch=6, readback_top=64))
+    pipe, sec = timed_run(torch, lambda: det.detect_many(frames, prefetch=6, readback_top=64))
     pipe_counts = (dt_cuda.launches, conv_cuda.launches, tc.launches)
     if min(pipe_counts) <= 0:
         raise AssertionError(f"serving: pipelined path launches {pipe_counts}")
     pipe_ips = [64 / sec]
-    want, sec = timed(lambda: [det.detect(f) for f in frames[:8]])
+    want, sec = timed_run(torch, lambda: [det.detect(f) for f in frames[:8]])
     sync_ms = [sec * 1e3 / 8]
     for i, w in enumerate(want):
         if not close_candidates(got8[i], w):
@@ -1052,10 +1054,10 @@ def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
             raise AssertionError(f"serving: pipelined path differs from detect, frame {i}")
     if len(got8) != 64 or len(pipe) != 64 or not want[0]:
         raise AssertionError("serving: wrong result count or no candidates")
-    sync_ms.append(timed(lambda: [det.detect(f) for f in frames[8:16]])[1] * 1e3 / 8)
-    pipe_ips.append(64 / timed(
+    sync_ms.append(timed_run(torch, lambda: [det.detect(f) for f in frames[8:16]])[1] * 1e3 / 8)
+    pipe_ips.append(64 / timed_run(torch,
         lambda: det.detect_many(frames, prefetch=6, readback_top=64))[1])
-    mb8_ips.append(64 / timed(lambda: det.detect_many(frames, microbatch=8))[1])
+    mb8_ips.append(64 / timed_run(torch, lambda: det.detect_many(frames, microbatch=8))[1])
     p1 = profile_device(torch, lambda: det.detect_many(frames[:8]), 8)
     p8 = profile_device(torch, lambda: det.detect_many(frames[:8], microbatch=8), 8)
     log("serving", frames="64 distinct uint8 " + "x".join(map(str, im.shape[:2])),
@@ -1164,7 +1166,255 @@ def check_nms(torch, np, pbd, nms, im, card) -> None:
         event_ms_per_image_batch8=f"{per_image[8]:.4f}", card=f"'{card}'")
 
 
+def timed_run(torch, run):
+    """(run()'s result, seconds), ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
+    """T1's port on the JAX tool's seeded default inputs (RandomState(0),
+    (5, 126, 166, 32) x (104, 5, 5, 32)) at toh 1, 2, 4 and 8: within
+    1e-5 * sum|x*w| of its plain version and equal to K2 bit for bit
+    (both sum in (i, j, c) order with fmaf); ms at each toh beside K2,
+    conv2d and the plain version, in turns; then one run of the harness
+    itself, `python -m partsbaseddetector_tpu_torch.tools.conv_proto`,
+    whose launch count is the row's."""
+    dev = DEVICE
+    s, f, h, w = 5, 104, 126, 166
+    feat_np, filt_np = harness.seeded_inputs(s, h, w, f)
+    feat = torch.as_tensor(feat_np, device=dev)
+    filt = torch.as_tensor(filt_np, device=dev)
+    feat_t = feat.permute(0, 1, 3, 2).contiguous()
+    w2 = cp.weights_k_major(filt)
+    want = cp.conv_proto_plain(feat_t, w2, f)
+    scale = cp.conv_proto_plain(feat_t.abs(), w2.abs(), f)
+    k2 = conv_cuda.filter_responses_infer(feat, filt)
+    tohs = (1, 2, 4, 8)
+    errs = {}
+    for toh in tohs:
+        got = cp.conv_proto(feat_t, w2, f, toh)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if got.shape != want.shape or not bool((err <= CONV_RTOL * scale).all()):
+            raise AssertionError(f"conv_proto toh={toh}: exceeds 1e-5*sum|x*w|")
+        if not torch.equal(got, k2):
+            raise AssertionError(f"conv_proto toh={toh}: differs from K2")
+        errs[toh] = err.max().item()
+    x_nchw = feat.permute(0, 3, 1, 2).contiguous()
+    w_nchw = filt.permute(0, 3, 1, 2).contiguous()
+    conv2d = torch.nn.functional.conv2d
+    ms = {t: [] for t in tohs}
+    k2_ms, lib_ms, plain_ms = [], [], []
+    for _ in range(2):  # in turns
+        for t in tohs:
+            ms[t].append(cuda_ms(lambda t=t: cp.conv_proto(feat_t, w2, f, t), reps=20))
+        k2_ms.append(cuda_ms(lambda: conv_cuda.filter_responses_infer(feat, filt), reps=20))
+        lib_ms.append(cuda_ms(lambda: conv2d(x_nchw, w_nchw), reps=20))
+        plain_ms.append(cuda_ms(lambda: cp.conv_proto_plain(feat_t, w2, f), reps=5))
+    ms = {t: min(v) for t, v in ms.items()}
+    k2_ms, lib_ms, plain_ms = min(k2_ms), min(lib_ms), min(plain_ms)
+    _, oh, ow, _ = want.shape
+    ops = 2.0 * s * oh * ow * cp.FH * cp.FW * cp.C * f
+    bnd = bound(nbytes(feat_t, w2, want), ops)
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "partsbaseddetector_tpu_torch.tools.conv_proto"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"conv_proto harness failed:\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not res.get("equal_to_k2") or res.get("launches") != 1:
+        raise AssertionError(f"conv_proto harness: {res}")
+    tflops = lambda t: ops / t / 1e9
+    log("conv_proto", shape="(5,126,166,32)x(104,5,5,32)", seed="RandomState(0)",
+        equal_to_k2="bit for bit at toh 1,2,4,8",
+        max_abs_err=",".join(f"{t}:{e:.3e}" for t, e in errs.items()),
+        bound="1e-5*sum|x*w|",
+        ms_by_toh=",".join(f"{t}:{v:.4f}" for t, v in ms.items()),
+        tflops_by_toh=",".join(f"{t}:{tflops(v):.2f}" for t, v in ms.items()),
+        k2_ms=f"{k2_ms:.4f}", library_conv2d_ms=f"{lib_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
+        bound_by=bnd["bound_by"], gflop=f"{ops / 1e9:.3f}",
+        harness=f"rc 0, toh 2 {res['ms']:.4f} ms, K2 {res['k2_ms']:.4f} ms, "
+                f"conv2d {res['conv2d_ms']:.4f} ms")
+    return {"launches": res["launches"], "max_abs_err": max(errs.values()),
+            "ms": ms[2], "ms_by_toh": ms, "k2_ms": k2_ms, "plain_ms": plain_ms,
+            **bnd, "library_ms": lib_ms}
+
+
+def match_boxes(bx_ref, sc_ref, vd_ref, bx, sc, vd, tol_px=0.75):
+    """bench.py::_match_boxes: greedily match each valid candidate to an
+    unused valid reference candidate whose part boxes all lie within
+    tol_px; returns (candidates, matched, max |score delta| of the
+    matches)."""
+    import numpy as np
+
+    qi, ri = np.flatnonzero(vd), np.flatnonzero(vd_ref)
+    if len(qi) == 0 or len(ri) == 0:
+        return len(qi), 0, float("nan")
+    matched, dmax = 0, 0.0
+    used = np.zeros(len(ri), bool)
+    for q in qi:
+        d = np.abs(bx_ref[ri] - bx[q][None]).max(axis=(1, 2))
+        d = np.where(used, np.inf, d)
+        j = int(np.argmin(d))
+        if d[j] <= tol_px:
+            used[j] = True
+            matched += 1
+            dmax = max(dmax, float(abs(sc_ref[ri[j]] - sc[q])))
+    return len(qi), matched, dmax
+
+
+def check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
+    """The hybrid profile (dtype=bfloat16, the fp32 re-rank on) on
+    person26 VGA, buckets_per_octave=2: K1, K2 and T2 launched by one
+    detect; two runs identical; ms/image beside the f32 detector `det`,
+    in turns, medians of 7; the CPU path's candidates at 120x160
+    (thresh -1e9, 32 detections) within 1e-5 * max(1, |score|), parts
+    1e-4; the JAX bench's rerank parity at 240x320 (bench.py:481-531:
+    thresh -1e9, 16 detections, the top-1 boxes within 0.75 px and its
+    score within 1e-3 of f32, at least 80% of the candidates
+    box-matched); rerank_fp32=True at f32 equal to plain f32 (scores
+    2e-5, parts 1e-4); a profile, and the re-score stage's device time
+    alone on the inputs a detect gave it."""
+    import partsbaseddetector_tpu_torch.detector as detector_mod
+
+    bf16 = torch.bfloat16
+    model = pbd.make_person_like_model()
+    hdet = pbd.PartsBasedDetector(model, buckets_per_octave=2, dtype=bf16,
+                                  device=DEVICE)
+    hdet.detect(im)  # warm-up: plan, re-score tables
+    dt_cuda.launches = dt_cuda.aux_launches = conv_cuda.launches = tc.launches = 0
+    first = hdet.detect(im)
+    torch.cuda.synchronize()
+    counts = {"dt1d": dt_cuda.launches, "dt1d_aux": dt_cuda.aux_launches,
+              "conv": conv_cuda.launches, "transpose": tc.launches}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"hybrid: a kernel was not launched: {counts}")
+    if not first or not all(np.isfinite(c.score) and np.isfinite(c.parts).all()
+                            and c.parts.shape == (26, 4) for c in first):
+        raise AssertionError("hybrid: no candidates, or malformed ones")
+    if not same_candidates(first, hdet.detect(im)):
+        raise AssertionError("hybrid: two runs differ")
+    hy, f32 = [], []
+    for _ in range(7):
+        f32.append(timed_detect(torch, det, im))
+        hy.append(timed_detect(torch, hdet, im))
+
+    lo = pbd.make_person_like_model()
+    lo.thresh = -1e9
+    small = im[:120, :160]
+    kw = dict(max_detections=32, buckets_per_octave=2, dtype=bf16)
+    got = pbd.PartsBasedDetector(lo, device=DEVICE, **kw).detect(small)
+    want = pbd.PartsBasedDetector(lo, device="cpu", **kw).detect(small)
+    if not got or not close_candidates(got, want):
+        raise AssertionError("hybrid: CUDA and CPU paths differ at 120x160")
+    cpu_dscore = max(abs(x.score - y.score) for x, y in zip(got, want))
+
+    mid = im[:240, :320]
+    kwp = dict(max_detections=16, buckets_per_octave=2, device=DEVICE)
+    o32 = pbd.PartsBasedDetector(lo, **kwp).detect_dense(mid)
+    ohy = pbd.PartsBasedDetector(lo, dtype=bf16, **kwp).detect_dense(mid)
+    nq, nm, dmax = match_boxes(o32.boxes, o32.scores, o32.valid,
+                               ohy.boxes, ohy.scores, ohy.valid)
+    top1 = bool(o32.valid[0] and ohy.valid[0]
+                and np.abs(o32.boxes[0] - ohy.boxes[0]).max() <= 0.75
+                and abs(float(o32.scores[0]) - float(ohy.scores[0])) <= 1e-3)
+    if not (top1 and nm >= max(1, int(0.8 * nq))):
+        raise AssertionError(f"hybrid: rerank parity failed (top1 {top1}, {nm}/{nq})")
+    plain32 = pbd.PartsBasedDetector(lo, **kwp).detect(mid)
+    rr32 = pbd.PartsBasedDetector(lo, rerank_fp32=True, **kwp).detect(mid)
+    if not same_candidates(rr32, plain32, score_tol=2e-5, box_tol=1e-4):
+        raise AssertionError("hybrid: the f32 re-rank differs from plain f32")
+    rr_dscore = max(abs(x.score - y.score) for x, y in zip(rr32, plain32))
+
+    prof = profile_device(torch, lambda: [hdet.detect(im) for _ in range(3)], 3)
+    calls = []
+    orig = detector_mod.rescore_from_responses
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    detector_mod.rescore_from_responses = record
+    try:
+        hdet.detect(im)
+    finally:
+        detector_mod.rescore_from_responses = orig
+    args, kwargs = calls[0]
+    stage = profile_device(torch, lambda: orig(*args, **kwargs), 1)
+    del calls, args, kwargs
+    ms, ms32 = statistics.median(hy), statistics.median(f32)
+    log("hybrid", imsize="x".join(map(str, im.shape[:2])), buckets_per_octave=2,
+        dtype="bfloat16", rerank_fp32=True, candidates=len(first),
+        top_score=f"{first[0].score:.4f}", deterministic=True,
+        dt1d_launches=counts["dt1d"], dt1d_xpass_launches=counts["dt1d_aux"],
+        conv_launches=counts["conv"], transpose_launches=counts["transpose"],
+        ms_per_image_median=f"{ms:.3f}", f32_ms_per_image_median=f"{ms32:.3f}",
+        ms_all=",".join(f"{t:.3f}" for t in hy),
+        f32_ms_all=",".join(f"{t:.3f}" for t in f32),
+        cpu_match_120x160=f"{len(want)} candidates, max dscore {cpu_dscore:.3e}",
+        rerank_parity_240x320=f"top1 {top1}, matched {nm}/{nq}, max dscore {dmax:.3e}",
+        f32_rerank_identity_240x320=f"max dscore {rr_dscore:.3e}",
+        device_busy_ms_per_image=f"{prof['busy']:.3f}",
+        device_ops_per_image=f"{prof['ops']:.0f}",
+        idle_share_vs_unprofiled=f"{max(0.0, 1 - prof['busy'] / ms):.3f}",
+        rescore_device_ms=f"{stage['busy']:.4f}",
+        rescore_device_ops=f"{stage['ops']:.0f}",
+        rescore_share_of_busy=f"{stage['busy'] / prof['busy']:.4f}",
+        card=f"'{card}'")
+    log("hybrid_profile", **{f"{k}_ms": f"{v:.3f}" for k, v in prof["families"].items()},
+        top=prof["top"])
+    return {"counts": counts, "ms": ms}
+
+
+def check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> None:
+    """detect_many(microbatch=8) with the hybrid profile over config 4's
+    64 VGA frames (the main path, counts at 0 just before it), images/s
+    beside the f32 detector's in turns, and the batched candidates of
+    the first 8 frames equal to per-frame bf16 detect's within
+    1e-5 * max(1, |score|), parts 1e-4."""
+    model = pbd.make_person_like_model()
+    frames = [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+              for i in range(64)]
+    hy = pbd.PartsBasedDetector(model, buckets_per_octave=2, dtype=torch.bfloat16,
+                                device=DEVICE)
+    f32 = pbd.PartsBasedDetector(model, buckets_per_octave=2, device=DEVICE)
+    hy.detect_many(frames[:8], microbatch=8)  # warm-up: plans, allocator
+    f32.detect_many(frames[:8], microbatch=8)
+    torch.cuda.reset_peak_memory_stats()
+    dt_cuda.launches = conv_cuda.launches = tc.launches = 0
+    got8, sec = timed_run(torch, lambda: hy.detect_many(frames, microbatch=8))
+    counts = {"dt1d": dt_cuda.launches, "conv": conv_cuda.launches,
+              "transpose": tc.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"hybrid_serving: a kernel was not launched: {counts}")
+    hy_ips, f32_ips = [64 / sec], []
+    for _ in range(2):
+        f32_ips.append(64 / timed_run(torch, lambda: f32.detect_many(frames, microbatch=8))[1])
+    hy_ips.append(64 / timed_run(torch, lambda: hy.detect_many(frames, microbatch=8))[1])
+    want = [hy.detect(f) for f in frames[:8]]
+    if len(got8) != 64 or not want[0]:
+        raise AssertionError("hybrid_serving: wrong result count or no candidates")
+    for i, w in enumerate(want):
+        if not close_candidates(got8[i], w):
+            raise AssertionError(f"hybrid_serving: microbatch 8 differs from detect, frame {i}")
+    log("hybrid_serving", frames="64 distinct uint8 " + "x".join(map(str, im.shape[:2])),
+        buckets_per_octave=2, dtype="bfloat16", match_first_8=True,
+        microbatch8_launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+        microbatch8_images_per_s=",".join(f"{t:.3f}" for t in hy_ips),
+        f32_microbatch8_images_per_s=",".join(f"{t:.3f}" for t in f32_ips),
+        mb8_peak_device_bytes=peak, card=f"'{card}'")
+
+
 def main() -> int:
+    global cuda_ms
     try:
         import torch
     except ImportError:
@@ -1181,8 +1431,11 @@ def main() -> int:
         import partsbaseddetector_tpu_torch.train as pbd_train
         from partsbaseddetector_tpu_torch import kernels
         from partsbaseddetector_tpu_torch.ops import conv, conv_cuda, dt_cuda, nms
+        from partsbaseddetector_tpu_torch.ops import conv_proto_cuda as cp
+        from partsbaseddetector_tpu_torch.tools import conv_proto as harness
         from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
         from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+        from partsbaseddetector_tpu_torch.utils.profiling import cuda_ms
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -1208,7 +1461,7 @@ def main() -> int:
         ptxas=" | ".join(regs))
 
     gen = torch.Generator().manual_seed(0)
-    dt_row = check_dt(torch, dt_cuda, gen)
+    dt_row, xpass_row = check_dt(torch, dt_cuda, gen)
     conv_row = check_conv(torch, conv, conv_cuda, gen)
     check_golden(np, pbd)
     counts, ms, det, im = check_person26(
@@ -1228,17 +1481,28 @@ def main() -> int:
     serving = check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)
     check_stream(torch, np, pbd, im, card)
     check_nms(torch, np, pbd, nms, im, card)
+    t1_row = check_conv_proto(torch, cp, conv_cuda, harness)
+    hybrid = check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card)
+    check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)
+    hyb = hybrid["counts"]
 
     table = {"kernels": [
         {"name": "dt1d_axis2", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:518",
          "also_replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
-         "launches": counts["dt1d"], **dt_row},
+         "launches": counts["dt1d"], "hybrid_launches": hyb["dt1d"], **dt_row},
+        # K3's row: the same kernel's x passes (the transposed map, aux),
+        # counted where they launch
+        {"name": "dt1d_axis2_xpass", "route": "cuda",
+         "source": "partsbaseddetector_tpu_torch/csrc/dt1d.cu",
+         "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
+         "launches": counts["dt1d_aux"], "hybrid_launches": hyb["dt1d_aux"],
+         **xpass_row},
         {"name": "conv_fp32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
          "replaces": "partsbaseddetector_tpu/ops/conv_pallas.py:101",
-         "launches": counts["conv"], **conv_row},
+         "launches": counts["conv"], "hybrid_launches": hyb["conv"], **conv_row},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:809",
@@ -1250,7 +1514,12 @@ def main() -> int:
         {"name": "transpose32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/transpose.cu",
          "replaces": "tools/transpose_kernel_probe.py:25",
-         "launches": serving["counts"]["transpose"], **tp_row},
+         "launches": serving["counts"]["transpose"],
+         "hybrid_launches": hyb["transpose"], **tp_row},
+        {"name": "conv_proto_fp32", "route": "cuda",
+         "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
+         "replaces": "tools/conv_pallas_proto.py:62",
+         "pallas_call": "tools/conv_pallas_proto.py:88", **t1_row},
     ]}
     print(json.dumps(table))
     print(card)

@@ -1,10 +1,11 @@
 """PartsBasedDetector: the public detect and serving APIs of the torch port.
 
-Port of `partsbaseddetector_tpu/detector.py` for the f32 profile. API
-as in the reference detector (include/PartsBasedDetector.hpp:167-175):
-construct, distribute_model(), name, detect(image[, depth]) ->
-candidates, plus the JAX package's serving APIs: detect_batch,
-detect_many, detect_stream, detect_fn and detect_batch_fn. One program
+Port of `partsbaseddetector_tpu/detector.py`: the f32 profile and the
+hybrid bf16 + fp32-rescore profile. API as in the reference detector
+(include/PartsBasedDetector.hpp:167-175): construct, distribute_model(),
+name, detect(image[, depth]) -> candidates, plus the JAX package's
+serving APIs: detect_batch, detect_many, detect_stream, detect_fn and
+detect_batch_fn. One program
 runs, on the detector's device, over one frame or a batch of frames:
 
     HOG pyramid (matrix-product resampling + tent histograms)
@@ -15,9 +16,10 @@ runs, on the detector's device, over one frame or a batch of frames:
       -> tree min-sum DP (2-D distance transforms: CUDA kernel K1, or
          the adaptive-window kernel K5 under PBD_DT_WINDOW=1, with the
          x pass's transposes on the T2 kernel)
-      -> merged top-k backtracking per image (optionally the part-aware
-         NMS keep mask, and with device_depth_filter the candidates'
-         depth-consistency keep mask)
+      -> merged top-k backtracking per image (in the hybrid profile, then
+         the f32 re-score and re-rank of the top-k, ops/rescore.py;
+         optionally the part-aware NMS keep mask, and with
+         device_depth_filter the candidates' depth-consistency keep mask)
 
 and only the final dense candidate tensors come back to the host. The
 per-image-size plan (and the Fourier engine's filter spectra) is built
@@ -48,6 +50,7 @@ from .models.model import Model, PackedModel, pack_model, to_device
 from .ops.depth_device import component_tables, depth_keep_mask
 from .ops.dp import backtrack, backtrack_merged, stable_top_k
 from .ops.nms import part_nms_device
+from .ops.rescore import build_rescore_tables, rescore_from_responses, tables_on
 from .pipeline import (
     depth_response_masks,
     fourier_spectra_args,
@@ -118,15 +121,31 @@ class PartsBasedDetector:
           kernels; on the CPU they run their plain torch versions. A
           CUDA device on a machine without one raises RuntimeError.
 
-    This is the f32 profile: constructing a detector turns off TF32 for
-    both cuBLAS matmuls and cuDNN (`torch.backends.cuda.matmul.
-    allow_tf32` and `torch.backends.cudnn.allow_tf32`, process-wide),
-    because the reference computes at full f32 precision and TF32
-    breaks its score parity.
+      dtype: the DP's dtype: torch.float32 (the default, reference
+          parity) or torch.bfloat16, the hybrid serving profile. There
+          HOG and the conv run in f32 (K2), the responses are cast to
+          bf16 for the masking and the tree DP, whose distance transforms
+          widen their sources to f32 (the JAX package's Pallas route, on
+          the card and on the CPU alike), and the top max_detections
+          placements by raw DP score are re-scored from the f32
+          responses, their boxes rebuilt in f32, re-sorted by that score
+          (stable: ties keep the DP's order) and thresholded
+          (ops/rescore.py). Scores and boxes are f32 reconstructions;
+          which placements are found may differ from the f32 profile at
+          near-ties.
+      rerank_fp32: the f32 re-score and re-rank; default on for bf16,
+          off for f32 (where it reproduces the DP's scores).
 
-    Options of the JAX detector that later slices port raise
-    NotImplementedError: a dtype other than float32 (the bf16 profile)
-    and rerank_fp32.
+    Constructing a detector turns off TF32 for both cuBLAS matmuls and
+    cuDNN (`torch.backends.cuda.matmul.allow_tf32` and
+    `torch.backends.cudnn.allow_tf32`, process-wide), because the
+    reference computes at full f32 precision and TF32 breaks its score
+    parity.
+
+    Options of the JAX detector that are not ported raise
+    NotImplementedError: a dtype other than float32 and bfloat16, and
+    bfloat16 with rerank_fp32=False (the JAX package then runs HOG and
+    the conv in bf16 through lax.conv).
     """
 
     def __init__(
@@ -145,17 +164,28 @@ class PartsBasedDetector:
     ):
         if conv_engine not in ("spatial", "fourier"):
             raise ValueError(f"unknown conv engine: {conv_engine}")
-        if dtype not in (torch.float32, np.float32, "float32"):
+        if dtype in (torch.float32, np.float32, "float32"):
+            dtype = torch.float32
+        elif dtype in (torch.bfloat16, "bfloat16"):
+            dtype = torch.bfloat16
+        else:
             raise NotImplementedError(
-                f"only the float32 profile is ported (got dtype={dtype})"
+                f"the float32 and bfloat16 profiles are ported (got {dtype})"
             )
-        if rerank_fp32:
-            raise NotImplementedError("the fp32 re-rank is not ported yet")
+        if rerank_fp32 is None:
+            rerank_fp32 = dtype != torch.float32
+        if dtype == torch.bfloat16 and not rerank_fp32:
+            raise NotImplementedError(
+                "bfloat16 without the fp32 re-rank (HOG and the conv in "
+                "bf16) is not ported"
+            )
         if border_mode not in ("matlab", "cpp"):
             raise ValueError(f"unknown border mode: {border_mode}")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.dtype = dtype
+        self.rerank_fp32 = bool(rerank_fp32)
         self.max_detections = int(max_detections)
         self.conv_engine = conv_engine
         self.nms_overlap = None if nms_overlap is None else float(nms_overlap)
@@ -168,6 +198,7 @@ class PartsBasedDetector:
         self._depth_tables = None
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
         self._spectra: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+        self._rtables: Dict[Tuple[int, int], object] = {}
         # uploads run on a stream of their own (the card only)
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -188,6 +219,7 @@ class PartsBasedDetector:
         )
         self._plans.clear()
         self._spectra.clear()
+        self._rtables.clear()
 
     @property
     def name(self) -> str:
@@ -645,9 +677,10 @@ class PartsBasedDetector:
 
     def _inputs(self, im: np.ndarray, depth: Optional[np.ndarray] = None):
         """One validated frame on the device as a batch of one, and its
-        depth map when the gate or the device filter reads it: uint16
-        millimetres travel as uint16 and become metres in f32 on the
-        device, as _depth_meters_host does on the host."""
+        depth map when the gate or the device filter reads it, in the
+        detector's dtype (as the JAX package casts it): uint16
+        millimetres travel as uint16 and become metres on the device, as
+        _depth_meters_host does on the host."""
         frame = self._to_device(_wire_image(im))[None]
         if depth is None or not (
             self.depth_gate is not None or self.device_depth_filter
@@ -658,9 +691,9 @@ class PartsBasedDetector:
             raise ValueError(f"depth must be (H, W), got {depth.shape}")
         if depth.dtype != np.uint16:
             depth = depth.astype(np.float32, copy=False)
-        d_dev = self._to_device(depth)
+        d_dev = self._to_device(depth).to(self.dtype)
         if depth.dtype == np.uint16:
-            d_dev = d_dev.to(torch.float32) / 1000.0
+            d_dev = d_dev / 1000.0
         return frame, d_dev
 
     def _plan(self, imsize: Tuple[int, int]) -> PyramidPlan:
@@ -670,6 +703,18 @@ class PartsBasedDetector:
                 self._packed, key, self.buckets_per_octave
             )
         return self._plans[key]
+
+    def _rescore_tables(self, imsize: Tuple[int, int]):
+        """The re-score's tables for one image size, on the device."""
+        key = (int(imsize[0]), int(imsize[1]))
+        if key not in self._rtables:
+            self._rtables[key] = tables_on(
+                build_rescore_tables(
+                    self._packed, self._plan(key), self.buckets_per_octave
+                ),
+                self.device,
+            )
+        return self._rtables[key]
 
     def _fft_spectra(self, imsize: Tuple[int, int]) -> List[torch.Tensor]:
         """The Fourier engine's filter spectra for one image size,
@@ -687,7 +732,8 @@ class PartsBasedDetector:
         (B, D, P, 4), scores (B, D), components (B, D) int32, valid
         (B, D), mixtures (B, D, P) int32), each image's rows best first,
         plus depth_keep (B, D) with a depth map and device_depth_filter.
-        A depth map ((H', W') f32 metres) belongs to a batch of one."""
+        A depth map ((H', W') metres in the detector's dtype) belongs to
+        a batch of one."""
         packed, dmodel = self._packed, self._dmodel
         spec = packed.spec
         imsize = tuple(ims.shape[1:3])
@@ -696,9 +742,16 @@ class PartsBasedDetector:
         max_det = self.max_detections
         p_max = packed.max_nparts
         dev = self.device
+        rerank = self.rerank_fp32
         rmasks = None
         if depth is not None and self.depth_gate is not None:
-            rmasks = depth_response_masks(depth, plan, spec, self.depth_gate)
+            rmasks = depth_response_masks(
+                depth, plan, spec, self.depth_gate, self.dtype
+            )
+        # the hybrid profile: HOG and the conv in f32, the DP in
+        # self.dtype, and the f32 re-score gathers one response scalar
+        # per (candidate, part) from the raw f32 responses
+        resps32: Optional[List[torch.Tensor]] = [] if rerank else None
         scores = root_scores(
             ims, packed, dmodel, plan, engine=self.conv_engine,
             response_masks=rmasks,
@@ -706,6 +759,8 @@ class PartsBasedDetector:
                 self._fft_spectra(imsize)
                 if self.conv_engine == "fourier" else None
             ),
+            dtype=self.dtype,
+            collect_responses=resps32,
         )
 
         # box origin: MATLAB subtracts the virtual padding; the C++ demo
@@ -714,13 +769,14 @@ class PartsBasedDetector:
         off_y = -1 if spec.border == "cpp" else -spec.pady
         bscale = lambda b: torch.as_tensor(
             [plan.scales[s].box_scale for s in plan.buckets[b].scale_indices],
-            dtype=torch.float32, device=dev,
+            dtype=self.dtype, device=dev,
         )
         kw = dict(
             box_off_x=off_x, box_off_y=off_y, thresh=spec.thresh,
             max_det=max_det,
         )
         outs = []  # (boxes, scores, mixtures, valid, component) per call
+        coords = []  # (bucket, scale, xs, ys) per call, for the re-score
         # merged tail for components with all parts on the root grid:
         # one top-k per image and one walk across all their buckets
         by_comp: Dict[int, list] = {}
@@ -729,7 +785,7 @@ class PartsBasedDetector:
         merged = [c for c in sorted(by_comp) if packed.components[c].max_ds == 0]
         for c in merged:
             lst = sorted(by_comp[c], key=lambda bs: bs.bucket_index)
-            bx, sc, mx, vd, _ = backtrack_merged(
+            bx, sc, mx, vd, (bid, si, xs, ys) = backtrack_merged(
                 [bs.rootv for bs in lst],
                 [bs.rooti for bs in lst],
                 [bs.tables for bs in lst],
@@ -738,26 +794,34 @@ class PartsBasedDetector:
                 **kw,
             )
             outs.append((bx, sc, mx, vd, c))
+            # a merged component scores every bucket, so the walk's index
+            # into its list is the plan's bucket index
+            coords.append((bid, si, xs, ys))
         # octave-offset components: the per-bucket walk
         for bs in scores:
             c = bs.component
             if c not in merged:
-                bx, sc, mx, vd, _ = backtrack(
+                bx, sc, mx, vd, (si, xs, ys) = backtrack(
                     bs.rootv, bs.rooti, bs.tables,
                     packed.components[c], dmodel.components[c],
                     bscale(bs.bucket_index), **kw,
                 )
                 outs.append((bx, sc, mx, vd, c))
+                coords.append((torch.full_like(si, bs.bucket_index), si, xs, ys))
 
         boxes_l, scores_l, mix_l, valid_l, comp_l = [], [], [], [], []
-        for bx, sc, mx, vd, c in outs:
+        for i, (bx, sc, mx, vd, c) in enumerate(outs):
             pc = packed.components[c].nparts
             if pc < p_max:
                 # pad the part axis by replicating the root box (keeps
-                # union-box NMS and bounding boxes unaffected by padding)
+                # union-box NMS and bounding boxes unaffected by padding);
+                # the re-score's partmask kills the padded coordinates
                 rep = bx[:, :, :1].expand(nimg, bx.shape[1], p_max - pc, 4)
                 bx = torch.cat([bx, rep], dim=2)
                 mx = F.pad(mx, (0, p_max - pc))
+                bid, si, xs, ys = coords[i]
+                coords[i] = (bid, si, F.pad(xs, (0, p_max - pc)),
+                             F.pad(ys, (0, p_max - pc)))
             boxes_l.append(bx)
             scores_l.append(sc)
             mix_l.append(mx)
@@ -769,11 +833,35 @@ class PartsBasedDetector:
         valid = torch.cat(valid_l, dim=1)
         comps = torch.cat(comp_l, dim=1)
 
-        masked = torch.where(valid, scores_all, NEG_INF)
-        top, order = stable_top_k(masked, max_det)
         rows = torch.arange(nimg, device=dev)[:, None]
-        out_boxes = boxes[rows, order]
-        out_valid = top > NEG_INF
+        if rerank:
+            # select by RAW DP score: the threshold moves to the f32
+            # score (a candidate just below it in bf16 may be above it in
+            # f32). isfinite(top) marks real placements because this
+            # path runs root_scores with params=None, whose masking value
+            # is -inf; a caller with trainable params would have to
+            # carry the backtracks' valid flags here instead.
+            top, order = stable_top_k(scores_all, max_det)
+            real = torch.isfinite(top)
+            bid, si, xs, ys = (
+                torch.cat(leaf, dim=1)[rows, order] for leaf in zip(*coords)
+            )
+            sc32, bx32 = rescore_from_responses(
+                resps32, self._rescore_tables(imsize), comps[rows, order],
+                bid, si, xs, ys, mixtures[rows, order],
+                box_off_x=off_x, box_off_y=off_y,
+            )
+            sc32 = torch.where(real, sc32, NEG_INF)
+            # stable: ties keep the DP's order
+            top, ord2 = torch.sort(sc32, dim=1, descending=True, stable=True)
+            order = torch.gather(order, 1, ord2)
+            out_boxes = bx32[rows, ord2]
+            out_valid = top >= spec.thresh
+        else:
+            masked = torch.where(valid, scores_all, NEG_INF)
+            top, order = stable_top_k(masked, max_det)
+            out_boxes = boxes[rows, order]
+            out_valid = top > NEG_INF
         if self.nms_overlap is not None:
             keep = part_nms_device(out_boxes, top, out_valid, self.nms_overlap)
             out_valid = out_valid & keep

@@ -42,6 +42,11 @@ _SIGNATURES = {
     "pbd_conv_fp32": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "pbd_conv_smem_bytes": ([_I] * 3, ctypes.c_longlong),
     "pbd_conv_tile_filters": ([], _I),
+    # feat_t, w2, out, s, h, c, w, fh, fw, fp, toh, stream
+    "pbd_conv_proto_fp32": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    "pbd_conv_proto_smem_bytes": ([_I], ctypes.c_longlong),
+    "pbd_conv_proto_tile_filters": ([], _I),
+    "pbd_conv_proto_max_toh": ([], _I),
     # src, dst, batch, h, w, stream
     "pbd_transpose32": ([_P] * 2 + [_I] * 3 + [_P], _I),
 }

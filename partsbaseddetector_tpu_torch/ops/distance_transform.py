@@ -70,8 +70,13 @@ def shift_distance_transform_2d_packed(
     are integral. With both given, step 1, no gradient and
     PBD_DT_WINDOW=1, both passes run K5, which returns (-inf, 0) there
     and stops each scan early; otherwise they are ignored.
+    A bf16 score (the hybrid profile) is widened to f32 here, before the
+    kernels, as the JAX package's Pallas wrapper does outside its kernel
+    (`pallas_dt.py::_dt1d_sublane_call`); the kernels and their plain
+    versions stay f32, so the card and the CPU compute alike.
     Returns (msg (..., dlen_y, dlen_x) f32, ptr (Iy << 12) | Ix int32).
     """
+    score = score.to(torch.float32)
     ax, bx = -wdef[..., 0], -wdef[..., 1]
     ay, by = -wdef[..., 2], -wdef[..., 3]
     if (

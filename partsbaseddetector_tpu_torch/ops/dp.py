@@ -83,6 +83,10 @@ def tree_min_sum(
         live counts: training masks with -1e10, not -inf, so every masked
         cell is an ordinary source, as in the JAX package's XLA DT. The
         where-chains pass gradients to the selected branch only.
+    The weights are cast to the responses' dtype. With bf16 responses
+    (the hybrid profile) the DTs widen their sources to f32 and return
+    f32, so that a child's message, and every sum it enters, is f32 from
+    there on: the dtypes of the JAX package's Pallas route on the chip.
     Returns (rootv (B, S, Hr, Wr), rooti int32, tables {p: packed int32
     pointers (B, S, L_parent, H_pargrid, W_pargrid)}).
     """
@@ -100,8 +104,13 @@ def tree_min_sum(
         if r.shape[2] >= 4096 or r.shape[3] >= 4096:
             raise ValueError("packed pointers use 12 bits/coordinate")
     trainable = tensors is not None
+    # the model's weights in the responses' dtype, as the JAX package
+    # casts them (bf16-rounded in the hybrid profile; the f32 DT then
+    # widens them with its sources)
+    dtype = root_resp.dtype
     defw_all, bias_all, root_bias = (
-        tensors if trainable else (dcomp.defw, dcomp.bias, dcomp.root_bias)
+        t.to(dtype) for t in
+        (tensors if trainable else (dcomp.defw, dcomp.bias, dcomp.root_bias))
     )
 
     def part_score(p: int) -> torch.Tensor:

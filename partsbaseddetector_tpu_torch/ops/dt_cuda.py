@@ -44,8 +44,10 @@ import torch
 from .. import kernels
 
 # launches of the CUDA kernels by dt1d, by DT1dFunction's backward and by
-# dt1d_window (the plain versions do not count)
+# dt1d_window (the plain versions do not count); aux_launches counts the
+# dt1d launches that carried aux (the x passes, K3's work)
 launches = 0
+aux_launches = 0
 bwd_launches = 0
 window_launches = 0
 
@@ -119,7 +121,7 @@ def _map_args(src, a, b, shift, nvalid):
 
 
 def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
-    global launches
+    global launches, aux_launches
     bsz, h, w = src.shape
     _check_args("dt1d", src, _map_args(src, a, b, shift, nvalid), aux)
     out = torch.empty((bsz, dlen, w), dtype=torch.float32, device=src.device)
@@ -134,6 +136,8 @@ def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
         )
     kernels.check(rc, "dt1d kernel launch")
     launches += 1
+    if aux is not None:
+        aux_launches += 1
     return out, ptr
 
 

@@ -75,7 +75,7 @@ def fourier_spectra_args(
 
 
 def depth_response_masks(
-    depth: torch.Tensor, plan: PyramidPlan, spec, gate
+    depth: torch.Tensor, plan: PyramidPlan, spec, gate, dtype=torch.float32
 ) -> List[torch.Tensor]:
     """Per-bucket plausible-depth response gates, (S_b, Hr, Wr) bool on
     depth's device: True where the sampled depth d is within
@@ -84,12 +84,14 @@ def depth_response_masks(
     not finite). depth: (H, W) f32 metres. The sample indices are the
     host's `depth.gate_sample_indices`, so the mask equals the host
     predictor `depth.depth_level_mask` on every scale's grid; d and z
-    are compared in f32."""
+    are compared in `dtype` (the detector's: bf16 in the hybrid
+    profile, as in the JAX package)."""
     h_im, w_im = plan.imsize
     dh, dw = depth.shape
     off_x = -1 if spec.border == "cpp" else -spec.padx
     off_y = -1 if spec.border == "cpp" else -spec.pady
     dev = depth.device
+    depth = depth.to(dtype)
     masks: List[torch.Tensor] = []
     for bucket in plan.buckets:
         boxes = [plan.scales[s].box_scale for s in bucket.scale_indices]
@@ -103,7 +105,7 @@ def depth_response_masks(
         ])  # (S, Wr)
         z = torch.as_tensor(
             [gate.fx * gate.object_width_m / bs for bs in boxes],
-            dtype=torch.float32, device=dev,
+            dtype=dtype, device=dev,
         )[:, None, None]
         iy_t = torch.as_tensor(iy, dtype=torch.long, device=dev)
         ix_t = torch.as_tensor(ix, dtype=torch.long, device=dev)
@@ -127,12 +129,14 @@ def root_scores(
     remat: bool = False,
     response_masks: Optional[List[torch.Tensor]] = None,
     fft_spectra: Optional[List[torch.Tensor]] = None,
+    dtype=torch.float32,
+    collect_responses: Optional[List[torch.Tensor]] = None,
 ) -> List[BucketScores]:
     """Run HOG pyramid -> responses -> tree DP for every (bucket,
     component). im: one (H, W, 3) frame or a (B, H, W, 3) batch on
     dmodel's device, any real dtype (cast to f32 here, so a uint8 frame
-    computes exactly as its f32 copy). A batch runs as one program with
-    a leading image axis on every map (the JAX package's vmap over
+    computes exactly as its f32 copy). A batch runs as one
+    program with a leading image axis on every map (the JAX package's vmap over
     images), and each image's scores equal its single-frame scores; a
     single frame's BucketScores carry no image axis.
     params (optional): trainable pools on the same device (see the
@@ -146,13 +150,28 @@ def root_scores(
     and uploaded here. response_masks (optional): one (S_b, Hr, Wr)
     bool tensor per bucket (depth_response_masks), applied to every
     filter and image; False cells take the masking value, as outside the valid
-    extents."""
+    extents.
+    dtype: the DP's dtype. HOG and the conv always run in f32 (the K2
+    kernel); the responses are cast to dtype before the masking: float32,
+    or bfloat16 for the hybrid profile, whose DTs widen their sources to
+    f32 (ops/distance_transform.py). collect_responses (optional): a
+    list the raw per-bucket (B, S_b, Hr, Wr, F) f32 responses, before
+    the cast and the masking, are appended to, for
+    ops/rescore.py::rescore_from_responses. A single frame's carry the
+    image axis too."""
     if engine not in ("spatial", "fourier"):
         raise ValueError(f"unknown conv engine: {engine}")
     if engine == "fourier" and params is not None:
         raise NotImplementedError(
             "training with the Fourier engine is not ported yet"
         )
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"root_scores: DP dtype {dtype}; the ported profiles are float32 "
+            "and bfloat16 over a float32 conv"
+        )
+    if params is not None and dtype != torch.float32:
+        raise NotImplementedError("training runs in float32 only")
     spec = packed.spec
     single = im.dim() == 3
     if single:
@@ -181,6 +200,11 @@ def root_scores(
         else:
             resp = filter_responses_infer(feat, dmodel.filters)
         resp = resp.reshape(nimg, -1, *resp.shape[-3:])
+        if collect_responses is not None:
+            # real placements never index masked cells, and the re-score
+            # gathers scalars from these
+            collect_responses.append(resp)
+        resp = resp.to(dtype)
         vh, vw = response_valid_extents(
             plan, bucket, packed.filter_sizes, spec.border
         )
@@ -188,7 +212,7 @@ def root_scores(
         if response_masks is not None:
             resp = torch.where(
                 response_masks[b][..., None], resp,
-                torch.full((), neg, device=resp.device),
+                torch.full((), neg, dtype=dtype, device=resp.device),
             )
         resps.append(resp)
         vhs.append(vh)

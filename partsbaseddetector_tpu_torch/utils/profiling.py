@@ -1,7 +1,8 @@
 """Input validation for the public detect API (a copy of
-`partsbaseddetector_tpu/utils/profiling.py::validate_image`). The
+`partsbaseddetector_tpu/utils/profiling.py::validate_image`) and the
+CUDA-event timer of the T1 harness and chip_smoke.py. The other
 profiling helpers of that module wait for the surfaces slice, where
-they move to torch.profiler and CUDA events."""
+they move to torch.profiler."""
 
 from __future__ import annotations
 
@@ -35,3 +36,19 @@ def validate_image(im: np.ndarray, min_side: Optional[int] = None) -> np.ndarray
             f"image side {min(im.shape[:2])} below minimum {min_side}"
         )
     return im
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean device time in ms of fn() over reps calls on the current CUDA
+    stream, after one warm-up call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

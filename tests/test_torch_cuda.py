@@ -11,7 +11,10 @@ the adaptive-window DT (K5) bit for bit against its plain version, and
 against K1 inside out_valid. Detect with the window DT gives the default
 detect's candidates bit for bit; the Fourier and RGB-D detectors give the
 CPU path's candidates. The transpose (T2) is exact for float32 and int32,
-and so is its gradient; the serving APIs give detect's candidates.
+and so is its gradient; the serving APIs give detect's candidates. T1's
+port (conv_proto) is within 1e-5 * sum|x*w| of its plain version and
+equal to K2 bit for bit at every toh; the hybrid bf16 profile gives the
+CPU path's candidates through K1, K2 and T2.
 """
 
 import os
@@ -51,10 +54,10 @@ def test_dt_kernel_matches_plain(cuda, h, w, dlen, step, aux):
     ax = torch.randint(0, 4096, (bsz, h, w), generator=gen, dtype=torch.int32) if aux else None
     args = [t.to(cuda) for t in (src, a, b, sh, nv)]
     axd = ax.to(cuda) if aux else None
-    before = dt_cuda.launches
+    before = (dt_cuda.launches, dt_cuda.aux_launches)
     got_v, got_p = dt_cuda.dt1d(*args[:4], dlen, step, nvalid=args[4], aux=axd)
     want_v, want_p = dt_cuda.dt1d_plain(*args, dlen, step, aux=axd)
-    assert dt_cuda.launches == before + 1
+    assert (dt_cuda.launches, dt_cuda.aux_launches) == (before[0] + 1, before[1] + bool(aux))
     assert torch.equal(got_v, want_v)
     live = torch.isfinite(want_v)
     assert torch.equal(got_p[live], want_p[live])
@@ -319,3 +322,45 @@ def test_serving_apis_on_cuda_match_detect(cuda):
             _same_candidates(g, s)
     for g, s in zip(det.detect_many(ims, microbatch=3), singles):
         _same_candidates(g, s, 1e-5 * max(1.0, abs(s[0].score)), 1e-4)
+
+
+@pytest.mark.parametrize(
+    "s,h,w,f,toh",
+    [(5, 126, 166, 104, 1), (5, 126, 166, 104, 2), (5, 126, 166, 104, 4),
+     (5, 126, 166, 104, 8), (2, 12, 40, 70, 3), (1, 7, 21, 7, 128)],
+)
+def test_conv_proto_kernel_matches_plain_and_k2(cuda, s, h, w, f, toh):
+    from partsbaseddetector_tpu_torch.ops import conv_cuda
+    from partsbaseddetector_tpu_torch.ops import conv_proto_cuda as cp
+
+    gen = torch.Generator().manual_seed(s * h + toh)
+    feat = torch.randn((s, h, w, 32), generator=gen).to(cuda)
+    filt = torch.randn((f, 5, 5, 32), generator=gen).to(cuda)
+    feat_t = feat.permute(0, 1, 3, 2).contiguous()
+    w2 = cp.weights_k_major(filt)
+    before = cp.launches
+    got = cp.conv_proto(feat_t, w2, f, toh)
+    assert cp.launches == before + 1
+    want = cp.conv_proto_plain(feat_t, w2, f)
+    bound = 1e-5 * cp.conv_proto_plain(feat_t.abs(), w2.abs(), f)
+    assert got.shape == want.shape == (s, h - 4, w - 4, f)
+    assert bool(((got - want).abs() <= bound).all())
+    # the same (i, j, c) FMA order as K2
+    assert torch.equal(got, conv_cuda.filter_responses_infer(feat, filt))
+
+
+def test_hybrid_detect_on_cuda_matches_cpu(cuda):
+    """The bf16 + fp32-rescore profile on the card runs K1, K2 and T2
+    and gives the CPU path's candidates."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector
+    from partsbaseddetector_tpu_torch.ops import conv_cuda, dt_cuda
+    from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+
+    model, im = _person_frame()
+    kw = dict(max_detections=32, buckets_per_octave=2, dtype=torch.bfloat16)
+    before = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    got = PartsBasedDetector(model, device=cuda, **kw).detect(im)
+    after = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    assert all(a > b for a, b in zip(after, before))
+    want = PartsBasedDetector(model, device="cpu", **kw).detect(im)
+    _same_candidates(got, want, 1e-5 * max(1.0, abs(want[0].score)), 1e-4)
