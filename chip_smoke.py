@@ -13,7 +13,12 @@ script exits non-zero without the final line):
   3. dt1d        the DT kernel against dt1d_plain on the card: exact
                  values and exact live pointers (y pass, x pass with aux,
                  short nvalid with -inf tails, all-dead maps, integer
-                 ties, step 2, the person26 VGA big-bucket shape)
+                 ties, step 2, a non-integral shift, a = 0 with b != 0, a
+                 map narrower than a column tile, H over one source chunk
+                 and no multiple of it, dlen no multiple of a thread's
+                 run, a map too tall to stay resident and one resident in
+                 more than 48 KB of shared memory, more than 65,535 maps
+                 refused, the person26 VGA big-bucket shape)
   4. conv        the conv kernel against filter_responses on the card at
                  a person26 VGA bucket, |err| <= 1e-5 * sum|x*w|
   5. golden      tests/fixtures/golden_model.npz through the port on the
@@ -24,13 +29,18 @@ script exits non-zero without the final line):
                  steady-state ms/image (median after warm-up)
   7. profile     torch.profiler over person26 VGA: device ms per image
                  by kernel family, the busiest kernels, the idle share
+     dt_glue     the device ops that the DT wrappers' own tensor code
+                 launches per detect: flatten_maps and the four negated
+                 slices of wdef, replayed on one detect's arguments
      transpose   T2 (the x pass's transposes) against its plain version,
-                 bit for bit, f32 and int32 (edge shapes, the person26
-                 and Pallas-probe shapes, more than 65,535 maps, every
-                 transpose input of one detect and of one microbatch-8
-                 program), its gradient; ms and GB/s at (80, 126, 166)
-                 beside the plain call and the bound, and one detect's
-                 transposes summed
+                 bit for bit, f32 and int32, single and as a pair in one
+                 launch (edge shapes, the person26 and Pallas-probe
+                 shapes, more than 65,535 maps, every transpose pair of
+                 one detect and of one microbatch-8 program), its
+                 gradient; ms and GB/s at (80, 126, 166) beside torch's
+                 transposed copy, a contiguous copy of the same bytes
+                 and the bound; a pair launch beside two single launches
+                 and two torch calls; one detect's transposes summed
   8. dt1d_bwd    the DT's backward kernel (K4) against dt1d_bwd_plain on
                  the card: g_src within 1e-5 * sum|g| per source, g_a and
                  g_b within 1e-5 * sum|g*d^2| and sum|g*d| per map (y pass,
@@ -140,6 +150,9 @@ def nvidia_smi() -> str:
 # of fn() over reps calls after a warm-up (utils/profiling.py), bound by
 # main() once the package imports
 cuda_ms = None
+# its profiler timer, device_ms(fn, reps=50): the mean device-busy ms of
+# fn() without the gaps between launches
+device_ms = None
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -178,7 +191,7 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     errs = []
 
     def case(name, bsz, h, w, dlen, step=1, aux=False, nv=None, ints=False,
-             dead=False):
+             dead=False, frac=False, ab=None, gen=gen):
         if ints:
             src = torch.randint(-4, 5, (bsz, h, w), generator=gen).float()
             a = -torch.randint(1, 3, (bsz,), generator=gen).float()
@@ -188,6 +201,11 @@ def check_dt(torch, dt_cuda, gen) -> dict:
             a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
             b = 0.3 * torch.randn((bsz,), generator=gen)
         shift = torch.randint(-3, 4, (bsz,), generator=gen).float()
+        if frac:
+            shift = shift + torch.rand((bsz,), generator=gen)
+        if ab is not None:
+            a.fill_(ab[0])
+            b.fill_(ab[1])
         if nv is None:
             nvalid = torch.full((bsz,), h, dtype=torch.int32)
         else:
@@ -222,15 +240,43 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     case("ties", 8, 24, 40, 24, ints=True)
     case("ties_aux", 8, 24, 40, 24, ints=True, aux=True)
     case("step2", 4, 36, 20, 15, step=2, nv=(18, 36))
+    # the cases of the redesigned kernel's paths draw from a generator of
+    # their own, so that the phases after this one keep their inputs
+    own = torch.Generator().manual_seed(6)
+    case("fractional_shift", 6, 40, 50, 37, aux=True, nv=(20, 40), frac=True, gen=own)
+    case("fractional_shift_step2", 4, 36, 20, 15, step=2, frac=True, gen=own)
+    case("a0_b_nonzero", 6, 30, 33, 30, aux=True, nv=(15, 30), ab=(0.0, 0.5), gen=own)
+    case("narrower_than_a_tile", 6, 50, 5, 45, aux=True, nv=(10, 50), gen=own)
+    case("h_over_one_chunk_ragged", 6, 37, 40, 29, aux=True, nv=(17, 37), gen=own)
+    case("dlen_not_a_multiple_of_a_run", 6, 40, 33, 13, nv=(20, 40), dead=True, gen=own)
+    case("dlen_beyond_h", 4, 20, 33, 150, aux=True, gen=own)
+    case("streamed_tall_map", 2, 1100, 40, 70, aux=True, nv=(900, 1100), gen=own)
+    # resident with more than 48 KB of shared memory (the opt-in size)
+    case("tall_resident_map", 2, 1000, 20, 40, aux=True, nv=(900, 1000), gen=own)
+    try:
+        dt_cuda.dt1d(torch.zeros((65536, 2, 2), device=dev),
+                     *(torch.zeros((65536,), device=dev),) * 3, 2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("dt1d: more than 65,535 maps were not refused")
     # person26 VGA big bucket: G=4 parts x S=5 scales x M=4 mixtures of
     # 126x166 maps; the y pass, then the x pass with aux
     g_s_m = 4 * 5 * 4
     yargs, _ = case("p26_y", g_s_m, 126, 166, 126, nv=(120, 126))
     xargs, xaux = case("p26_x_aux", g_s_m, 166, 126, 166, aux=True,
                        nv=(160, 166))
-    ms_y = cuda_ms(lambda: dt_cuda.dt1d(*yargs[:4], 126, 1, nvalid=yargs[4]))
-    ms_x = cuda_ms(lambda: dt_cuda.dt1d(*xargs[:4], 166, 1, nvalid=xargs[4],
-                                        aux=xaux))
+    run_y = lambda: dt_cuda.dt1d(*yargs[:4], 126, 1, nvalid=yargs[4])
+    run_x = lambda: dt_cuda.dt1d(*xargs[:4], 166, 1, nvalid=xargs[4], aux=xaux)
+    # the event time of the wrapper call, as every earlier run of this
+    # script took it (ms), and beside it the kernel's own device time
+    # (device_ms, the profiler's dt1d family: a call of the wrapper also
+    # launches flatten_maps' small torch kernels, and at these kernel
+    # times CUDA events around it time the host)
+    dev_y = profile_device(torch, lambda: [run_y() for _ in range(20)], 20)
+    dev_x = profile_device(torch, lambda: [run_x() for _ in range(20)], 20)
+    dms_y, dms_x = dev_y["families"]["dt1d"], dev_x["families"]["dt1d"]
+    ms_y, ms_x = cuda_ms(run_y, reps=20), cuda_ms(run_x, reps=20)
     plain_y = cuda_ms(lambda: dt_cuda.dt1d_plain(*yargs, 126, 1), reps=3)
     plain_x = cuda_ms(lambda: dt_cuda.dt1d_plain(*xargs, 166, 1, aux=xaux),
                       reps=3)
@@ -238,15 +284,19 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     work = [dt_work(yargs[0], yargs[4], 126), dt_work(xargs[0], xargs[4], 166, xaux)]
     bnd = bound(sum(w[0] for w in work), sum(w[1] for w in work))
     # the x pass alone: K1 on the transposed map with aux, the K3 port
-    xpass = {"max_abs_err": errs[-1], "ms": ms_x, "plain_ms": plain_x,
-             **bound(*work[1]), "library_ms": None}
+    xpass = {"max_abs_err": errs[-1], "ms": ms_x, "device_ms": dms_x,
+             "plain_ms": plain_x, **bound(*work[1]), "library_ms": None}
     log("dt1d", cases=len(errs), exact=True, max_abs_err=max(errs),
         shape="y(80,126,166)+x_aux(80,166,126)", ms=f"{ms:.4f}",
+        device_ms=f"{dms_y + dms_x:.4f}",
+        wrapper_device_ms=f"{dev_y['busy'] + dev_x['busy']:.4f}",
+        wrapper_device_ops=f"{dev_y['ops'] + dev_x['ops']:.0f}",
         plain_ms=f"{plain:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
         bound_by=bnd["bound_by"], library_ms=None, x_pass_ms=f"{ms_x:.4f}",
+        x_pass_device_ms=f"{dms_x:.4f}",
         x_pass_plain_ms=f"{plain_x:.4f}", x_pass_bound_ms=f"{xpass['bound_ms']:.4f}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain, **bnd,
-            "library_ms": None}, xpass
+    return {"max_abs_err": max(errs), "ms": ms, "device_ms": dms_y + dms_x,
+            "plain_ms": plain, **bnd, "library_ms": None}, xpass
 
 
 def check_conv(torch, conv, conv_cuda, gen) -> dict:
@@ -314,6 +364,22 @@ def same_candidates(a, b, score_tol=0.0, box_tol=0.0) -> bool:
     )
 
 
+def difference(a, b) -> str:
+    """What same_candidates would trip over, for a gate's failure message."""
+    if len(a) != len(b):
+        return f"{len(a)} candidates against {len(b)}"
+    pairs = list(zip(a, b))
+    dscore = [abs(x.score - y.score) for x, y in pairs]
+    dbox = [float(abs(x.parts - y.parts).max()) for x, y in pairs]
+    other = sum(x.component != y.component or not (x.mixtures == y.mixtures).all()
+                for x, y in pairs)
+    worst = max(range(len(pairs)), key=lambda i: (dbox[i], dscore[i])) if pairs else -1
+    return (f"{len(a)} candidates, max |dscore| {max(dscore, default=0.0):.3e}, "
+            f"max |dbox| {max(dbox, default=0.0):.3e}, "
+            f"{sum(d > 1e-3 for d in dbox)} boxes off by more than 1e-3, "
+            f"{other} with another component or mixture, worst rank {worst}")
+
+
 def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
     model = pbd.make_person_like_model()
     bpo = 2 if model.interval % 2 == 0 else 1
@@ -350,7 +416,8 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
     want = det_cpu.detect(small)
     got = det.detect(small)
     if not same_candidates(got, want, score_tol=1e-4, box_tol=1e-3):
-        raise AssertionError("person26: CUDA and CPU paths differ at 120x160")
+        raise AssertionError("person26: CUDA and CPU paths differ at 120x160: "
+                             + difference(got, want))
     log("person26", imsize="480x640", buckets_per_octave=bpo,
         candidates=len(first), top_score=f"{first[0].score:.4f}",
         dt1d_launches=counts["dt1d"], dt1d_xpass_launches=counts["dt1d_aux"],
@@ -843,9 +910,10 @@ def check_fourier(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> tuple:
                                  buckets_per_octave=2, max_detections=32)
     card_det = pbd.PartsBasedDetector(model, conv_engine="fourier",
                                       max_detections=32, **kw)
-    if not same_candidates(card_det.detect(small), cpu.detect(small),
-                           score_tol=1e-4, box_tol=1e-3):
-        raise AssertionError("fourier: CUDA and CPU paths differ at 120x160")
+    got, want = card_det.detect(small), cpu.detect(small)
+    if not same_candidates(got, want, score_tol=1e-4, box_tol=1e-3):
+        raise AssertionError("fourier: CUDA and CPU paths differ at 120x160: "
+                             + difference(got, want))
     log("fourier", imsize="x".join(map(str, im.shape[:2])), buckets_per_octave=2,
         candidates=int(first.valid.sum()), deterministic=True,
         max_dscore_vs_spatial=f"{dscore:.3e}", bound="5e-3",
@@ -886,9 +954,10 @@ def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
     got, want = det.detect_dense(small, dsmall), cpu.detect_dense(small, dsmall)
     if not np.array_equal(got.depth_keep, want.depth_keep):
         raise AssertionError("rgbd: keep masks differ from the CPU path's at 120x160")
-    if not same_candidates(det.detect(small, dsmall), cpu.detect(small, dsmall),
-                           score_tol=1e-4, box_tol=1e-3):
-        raise AssertionError("rgbd: CUDA and CPU paths differ at 120x160")
+    got_c, want_c = det.detect(small, dsmall), cpu.detect(small, dsmall)
+    if not same_candidates(got_c, want_c, score_tol=1e-4, box_tol=1e-3):
+        raise AssertionError("rgbd: CUDA and CPU paths differ at 120x160: "
+                             + difference(got_c, want_c))
     log("rgbd", imsize="x".join(map(str, im.shape[:2])), depth="uint16 mm", candidates=int(dense.valid.sum()),
         kept_by_depth_filter=kept, dt1d_launches=counts["dt1d"],
         conv_launches=counts["conv"],
@@ -899,94 +968,173 @@ def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
 
 
 def capture_transposes(run, dtm) -> list:
-    """The inputs of every x-pass transpose of run() (the y pass's values
-    and pointers, the x pass's values and pointers), recorded through
-    ops/distance_transform.py's transpose_last2."""
+    """The input pairs of every x-pass transpose of run() (the y pass's
+    values and pointers, then the x pass's values and pointers), recorded
+    through ops/distance_transform.py's transpose_last2_pair."""
     calls = []
-    orig = dtm.transpose_last2
+    orig = dtm.transpose_last2_pair
 
-    def record(x):
-        calls.append(x)
-        return orig(x)
+    def record(x, y):
+        calls.append((x, y))
+        return orig(x, y)
 
-    dtm.transpose_last2 = record
+    dtm.transpose_last2_pair = record
     try:
         run()
     finally:
-        dtm.transpose_last2 = orig
+        dtm.transpose_last2_pair = orig
     return calls
+
+
+def count_dt_glue(torch, dt_cuda, dtm, det, im) -> None:
+    """The device ops that the DT wrappers' own tensor code launches per
+    person26 detect, counted by replaying one detect's arguments under
+    the profiler: ops/dt_cuda.py::flatten_maps (the per-map parameters
+    broadcast and made contiguous, once per 1-D pass) and the four
+    negated slices of wdef in ops/distance_transform.py (once per 2-D
+    DT)."""
+    import partsbaseddetector_tpu_torch.ops.dp as dp
+
+    flat_calls, wdefs = [], []
+    orig_flat, orig_dt = dt_cuda.flatten_maps, dp.shift_distance_transform_2d_packed
+
+    def record_flat(*args):
+        flat_calls.append(args)
+        return orig_flat(*args)
+
+    def record_dt(score, wdef, *args, **kwargs):
+        wdefs.append(wdef)
+        return orig_dt(score, wdef, *args, **kwargs)
+
+    dt_cuda.flatten_maps, dp.shift_distance_transform_2d_packed = record_flat, record_dt
+    try:
+        det.detect(im)
+    finally:
+        dt_cuda.flatten_maps, dp.shift_distance_transform_2d_packed = orig_flat, orig_dt
+    flat = profile_device(torch, lambda: [orig_flat(*c) for c in flat_calls], 1)
+    neg = profile_device(
+        torch, lambda: [-w[..., k] for w in wdefs for k in range(4)], 1)
+    log("dt_glue", flatten_maps_calls=len(flat_calls),
+        flatten_maps_device_ops=f"{flat['ops']:.0f}",
+        flatten_maps_device_ms=f"{flat['busy']:.4f}",
+        dt2d_calls=len(wdefs), wdef_negation_device_ops=f"{neg['ops']:.0f}",
+        wdef_negation_device_ms=f"{neg['busy']:.4f}")
 
 
 def check_transpose(torch, np, tc, dtm, gen, det, im) -> dict:
     """T2 against transpose_last2_plain on the card, bit for bit, f32 and
-    int32, at edge shapes, the DT x pass's person26 shapes, the Pallas
-    probe's three shapes and more than 65,535 maps, and on every
-    transpose input of one person26 VGA detect and of one microbatch-8
-    program (maps of 8 images folded together); its gradient; its time
-    and the plain call's at (80, 126, 166) f32, and the summed time of
-    every transpose of one detect, kernel against plain."""
+    int32, single and as an (f32, i32) pair in one launch, at edge
+    shapes, the DT x pass's person26 shapes, the Pallas probe's three
+    shapes and more than 65,535 maps, and on every transpose pair of one
+    person26 VGA detect and of one microbatch-8 program (maps of 8 images
+    folded together); its gradient; at (80, 126, 166) f32 its time in
+    turns with torch's transposed copy (the library call) and a
+    contiguous copy of the same bytes; one pair launch against two single
+    launches and two torch calls; and the summed device time of every
+    transpose of one detect, kernel against torch."""
     dev = DEVICE
 
-    def exact(x, what):
-        got, want = tc.transpose_last2(x), tc.transpose_last2_plain(x)
-        if got.shape != want.shape or not torch.equal(
+    def same(got, x, what):
+        want = tc.transpose_last2_plain(x)
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(
                 got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"transpose {what}: differs from plain")
 
+    def exact_pair(x, y, what):
+        xt, yt = tc.transpose_last2_pair(x, y)
+        same(xt, x, f"pair {what}")
+        same(yt, y, f"pair {what}")
+
     shapes = [(1, 1, 1), (3, 33, 31), (80, 126, 166), (80, 166, 126),
-              (160, 168, 128), (160, 166, 126), (520, 128, 104), (70000, 3, 2)]
+              (160, 168, 128), (160, 166, 126), (520, 128, 104), (7, 65, 130),
+              (70000, 3, 2)]
     for shape in shapes:
-        for dtype in (torch.float32, torch.int32):
-            if dtype == torch.float32:
-                x = torch.randn(shape, generator=gen)
-                x.view(-1)[::5] = -torch.inf
-            else:
-                x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
-                                  dtype=torch.int32)
-            exact(x.to(dev), f"{shape} {dtype}")
+        x = torch.randn(shape, generator=gen)
+        x.view(-1)[::5] = -torch.inf
+        y = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                          dtype=torch.int32)
+        x, y = x.to(dev), y.to(dev)
+        same(tc.transpose_last2(x), x, f"{shape} f32")
+        same(tc.transpose_last2(y), y, f"{shape} i32")
+        exact_pair(x, y, shape)
+    empty = tc.transpose_last2_pair(torch.empty((0, 4, 5), device=dev),
+                                    torch.empty((0, 4, 5), dtype=torch.int32, device=dev))
+    if empty[0].shape != (0, 5, 4) or empty[1].shape != (0, 5, 4):
+        raise AssertionError("transpose: empty pair has the wrong shape")
     caps = capture_transposes(lambda: det.detect(im), dtm)
     frames = [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
               for i in range(8)]
     caps8 = capture_transposes(lambda: det.detect_many(frames, microbatch=8), dtm)
-    for i, c in enumerate(caps + caps8):
-        exact(c, f"captured #{i} {tuple(c.shape)} {c.dtype}")
+    for i, (cx, cy) in enumerate(caps + caps8):
+        exact_pair(cx, cy, f"captured #{i} {tuple(cx.shape)}")
     if not caps or not caps8:
         raise AssertionError("transpose: a detect ran no x-pass transpose")
-    maps = lambda cs: max(c.numel() // (c.shape[-2] * c.shape[-1]) for c in cs)
+    maps = lambda cs: max(c.numel() // (c.shape[-2] * c.shape[-1]) for c, _ in cs)
     n8, most_maps = len(caps8), f"{maps(caps)} detect, {maps(caps8)} microbatch-8"
     del caps8
     x = torch.randn((80, 126, 166), generator=gen).to(dev).requires_grad_()
+    y = torch.randint(0, 4096, (80, 126, 166), generator=gen, dtype=torch.int32).to(dev)
     cot = torch.randn((80, 166, 126), generator=gen).to(dev)
     (tc.transpose_last2(x) * cot).sum().backward()
     if not torch.equal(x.grad, tc.transpose_last2_plain(cot)):
         raise AssertionError("transpose: the gradient differs from the plain one")
+    x.grad = None
+    (tc.transpose_last2_pair(x, y)[0] * cot).sum().backward()
+    if not torch.equal(x.grad, tc.transpose_last2_plain(cot)):
+        raise AssertionError("transpose: the pair's gradient differs from the plain one")
 
     x = x.detach()
-    ms, plain = [], []
-    for _ in range(3):  # in turns
-        ms.append(cuda_ms(lambda: tc.transpose_last2(x), reps=50))
-        plain.append(cuda_ms(lambda: tc.transpose_last2_plain(x), reps=50))
-    ms, plain = min(ms), min(plain)
+    dst = torch.empty_like(x)
+    runs = {
+        "kernel": lambda: tc.transpose_last2(x),
+        "plain": lambda: tc.transpose_last2_plain(x),
+        "copy": lambda: dst.copy_(x),
+        "pair": lambda: tc.transpose_last2_pair(x, y),
+        "two_singles": lambda: (tc.transpose_last2(x), tc.transpose_last2(y)),
+        "two_plain": lambda: tc.transpose_last2_pair_plain(x, y),
+    }
+    # in turns. Event times (the least of three) include the gaps between
+    # launches, which at these sizes are the host's; device times (the
+    # median of three) are the profiler's, kernels and copies only.
+    event = {k: [] for k in runs}
+    device = {k: [] for k in runs}
+    for _ in range(3):
+        for k, run in runs.items():
+            event[k].append(cuda_ms(run, reps=50))
+            device[k].append(device_ms(run, reps=50))
+    event = {k: min(v) for k, v in event.items()}
+    device = {k: statistics.median(v) for k, v in device.items()}
+    ms, plain = event["kernel"], event["plain"]
     bnd = bound(2 * nbytes(x), 0.0)
     # one detect's transposes, device time from the profiler (events
-    # around 200 launches would time the host's launch loop)
+    # around 100 launches would time the host's launch loop)
     det_ms = profile_device(
-        torch, lambda: [tc.transpose_last2(c) for c in caps], 1)["busy"]
+        torch, lambda: [tc.transpose_last2_pair(cx, cy) for cx, cy in caps],
+        1)["busy"]
     det_plain = profile_device(
-        torch, lambda: [tc.transpose_last2_plain(c) for c in caps], 1)["busy"]
-    det_bound = bound(2 * nbytes(*caps), 0.0)["bound_ms"]
-    log("transpose", cases=2 * len(shapes), exact=True, gradient_exact=True,
-        captured_exact=f"{len(caps)} detect + {n8} microbatch-8",
+        torch, lambda: [tc.transpose_last2_pair_plain(cx, cy) for cx, cy in caps],
+        1)["busy"]
+    det_bound = bound(2 * nbytes(*(c for pair_ in caps for c in pair_)), 0.0)["bound_ms"]
+    log("transpose", cases=3 * len(shapes) + 1, exact=True, gradient_exact=True,
+        captured_exact=f"{len(caps)} detect + {n8} microbatch-8 pairs",
         most_maps_per_transpose=most_maps,
         shape="(80,126,166) f32", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+        copy_ms=f"{event['copy']:.4f}",
         gb_per_s=f"{2 * nbytes(x) / ms / 1e6:.1f}",
         plain_gb_per_s=f"{2 * nbytes(x) / plain / 1e6:.1f}",
         bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
-        per_detect_transposes=len(caps), per_detect_device_ms=f"{det_ms:.4f}",
+        pair_ms=f"{event['pair']:.4f}", two_singles_ms=f"{event['two_singles']:.4f}",
+        two_plain_ms=f"{event['two_plain']:.4f}",
+        **{f"{k}_device_ms": f"{v:.4f}" for k, v in device.items()},
+        device_gb_per_s=f"{2 * nbytes(x) / device['kernel'] / 1e6:.1f}",
+        per_detect_pair_launches=len(caps), per_detect_device_ms=f"{det_ms:.4f}",
         per_detect_plain_device_ms=f"{det_plain:.4f}",
         per_detect_bound_ms=f"{det_bound:.4f}")
-    # the plain version is the library call: .transpose(-1, -2).contiguous()
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, **bnd,
+    # the library call is torch's x.transpose(-1, -2).contiguous(), which
+    # is also the plain version; event times as in every earlier run of
+    # this script, the profiler's device times beside them
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device["kernel"],
+            "plain_ms": plain, "plain_device_ms": device["plain"], **bnd,
             "library_ms": plain}
 
 
@@ -1135,7 +1283,8 @@ def check_nms(torch, np, pbd, nms, im, card) -> None:
     if not 0 < len(got) < len(plain.detect(small)):
         raise AssertionError("nms: suppressed nothing or everything")
     if not same_candidates(got, want, score_tol=1e-4, box_tol=1e-3):
-        raise AssertionError("nms: CUDA and CPU paths differ at 120x160")
+        raise AssertionError("nms: CUDA and CPU paths differ at 120x160: "
+                             + difference(got, want))
     frames = np.stack([np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
                        for i in range(8)])
     boxes, scores, _, valid, _ = plain.detect_batch_fn(im.shape[:2], 8)(
@@ -1313,7 +1462,8 @@ def check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
     got = pbd.PartsBasedDetector(lo, device=DEVICE, **kw).detect(small)
     want = pbd.PartsBasedDetector(lo, device="cpu", **kw).detect(small)
     if not got or not close_candidates(got, want):
-        raise AssertionError("hybrid: CUDA and CPU paths differ at 120x160")
+        raise AssertionError("hybrid: CUDA and CPU paths differ at 120x160: "
+                             + difference(got, want))
     cpu_dscore = max(abs(x.score - y.score) for x, y in zip(got, want))
 
     mid = im[:240, :320]
@@ -1414,7 +1564,7 @@ def check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> No
 
 
 def main() -> int:
-    global cuda_ms
+    global cuda_ms, device_ms
     try:
         import torch
     except ImportError:
@@ -1435,7 +1585,7 @@ def main() -> int:
         from partsbaseddetector_tpu_torch.tools import conv_proto as harness
         from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
         from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
-        from partsbaseddetector_tpu_torch.utils.profiling import cuda_ms
+        from partsbaseddetector_tpu_torch.utils.profiling import cuda_ms, device_ms
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -1468,6 +1618,7 @@ def main() -> int:
         torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card
     )
     profile_person26(torch, det, im, ms)
+    count_dt_glue(torch, dt_cuda, dtm, det, im)
     tp_row = check_transpose(torch, np, tc, dtm, gen, det, im)
     bwd_row = check_dt_bwd(torch, dt_cuda, gen)
     train = check_train(torch, np, pbd, pbd_train, dt_cuda, card)

@@ -47,8 +47,10 @@ _SIGNATURES = {
     "pbd_conv_proto_smem_bytes": ([_I], ctypes.c_longlong),
     "pbd_conv_proto_tile_filters": ([], _I),
     "pbd_conv_proto_max_toh": ([], _I),
-    # src, dst, batch, h, w, stream
-    "pbd_transpose32": ([_P] * 2 + [_I] * 3 + [_P], _I),
+    # src0, dst0, src1 or null, dst1 or null, batch, h, w, stream
+    "pbd_transpose32": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "pbd_dt1d_rows": ([], _I),
+    "pbd_dt1d_chunk": ([], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

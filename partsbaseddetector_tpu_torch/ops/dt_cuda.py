@@ -4,7 +4,9 @@
 (K1, `_make_sublane_kernel`) and, through a transpose, the forward of
 `dt1d_pallas` (K3, `_make_kernel`). On a CUDA tensor it launches
 `csrc/dt1d.cu`; on a CPU tensor it runs `dt1d_plain`, the brute-force
-torch version of the same arithmetic. The two agree bit for bit.
+torch version of the same arithmetic. The two agree bit for bit. The
+kernel skips whole chunks of source rows that cannot win
+(`dt1d_chunk_keep_plain` states its rule in torch, for the tests).
 
 For map b, output row i and column w, with q = shift_b + step*i:
   out[b, i, w] = max_{v < nvalid_b} (a_b*(q - v) + b_b)*(q - v) + src[b, v, w]
@@ -52,6 +54,10 @@ bwd_launches = 0
 window_launches = 0
 
 _NEG_INF = -math.inf
+# csrc/dt1d.cu's kR and kV: the consecutive output rows one thread owns
+# (a run) and the source rows of one chunk of its pruning rule
+DT1D_ROWS = 8
+DT1D_CHUNK = 16
 
 
 def dt1d_plain(
@@ -92,6 +98,82 @@ def dt1d_plain(
         outs.append(best)
         ptrs.append(arg)
     return torch.cat(outs, dim=1), torch.cat(ptrs, dim=1)
+
+
+def dt1d_chunk_keep_plain(
+    src: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    shift: torch.Tensor,
+    nvalid: torch.Tensor,
+    dlen: int,
+    step: int = 1,
+    rows: int = DT1D_ROWS,
+    chunk: int = DT1D_CHUNK,
+) -> torch.Tensor:
+    """The chunk-pruning rule of `csrc/dt1d.cu` in torch, in the kernel's
+    own float32 arithmetic: which chunks of `chunk` source rows each run
+    of `rows` consecutive output rows keeps, per column. Arguments as
+    for `dt1d_plain` (sources finite or -inf). Returns a bool tensor
+    (B, ceil(dlen / rows), ceil(H / chunk), W).
+
+    A run first evaluates a seed window of `chunk` sources centred on
+    its rows; the smallest of its rows' best seed values is the
+    threshold `thr`. For chunk [v0, v1] every displacement d = q - v of
+    the run lies in [q_lo - v1, q_hi - v0], over which the penalty
+    (a*d + b)*d is at most `pm`, the largest of its values at the two
+    ends and at the vertex -b/(2a) clamped into the interval. The chunk
+    is dropped when its maximum `cm` is -inf or when
+    (cm + pm) + (1e-3 + 1e-3*(|cm| + |pm|)) < thr. The kernel evaluates
+    every chunk that any lane of a warp keeps, so it evaluates at least
+    these; every source that reaches an output's maximum must lie in a
+    kept chunk (`tests/test_torch_dt_prune.py`)."""
+    bsz, h, w = src.shape
+    dev = src.device
+    f32 = torch.float32
+    nv = nvalid.to(dev).clamp(0, h).long()
+    nruns, nchunks = -(-dlen // rows), -(-h // chunk)
+    hp = nchunks * chunk
+    srcp = torch.full((bsz, hp, w), _NEG_INF, dtype=f32, device=dev)
+    srcp[:, :h] = src
+    live = torch.arange(hp, device=dev)[None, :] < nv[:, None]
+    srcp = torch.where(live[:, :, None], srcp, torch.full((), _NEG_INF, device=dev))
+    cm = srcp.reshape(bsz, nchunks, chunk, w).amax(dim=2)[:, None]  # (B,1,C,W)
+
+    def pen(d, extra_dims):
+        ix = (slice(None),) + (None,) * extra_dims
+        return (a[ix] * d + b[ix]) * d
+
+    i_first = torch.arange(nruns, device=dev) * rows
+    n_in = (dlen - i_first).clamp(max=rows)  # rows of each run inside the map
+    q_first = shift[:, None] + (step * i_first).to(f32)  # (B, R)
+    q_last = shift[:, None] + (step * (i_first + n_in - 1)).to(f32)
+
+    # the seed window [vs, vs + chunk) and each row's best value over it
+    half = ((step * (n_in - 1) - chunk) >> 1).to(f32)
+    vs = (q_first.floor() + half).clamp(min=0)
+    vs = torch.minimum(vs, (nv - chunk).clamp(min=0).to(f32)[:, None]).long()
+    r = torch.arange(rows, device=dev)
+    q = shift[:, None, None] + (step * (i_first[:, None] + r)).to(f32)  # (B,R,rows)
+    v = vs[:, :, None] + torch.arange(chunk, device=dev)  # (B, R, chunk)
+    d = q[:, :, :, None] - v[:, :, None, :].to(f32)
+    held = srcp[torch.arange(bsz, device=dev)[:, None, None], v]  # (B,R,chunk,W)
+    seed = (pen(d, 3)[..., None] + held[:, :, None]).amax(dim=3)  # (B,R,rows,W)
+    in_map = (r[None, :] < n_in[:, None])[None, :, :, None]
+    thr = torch.where(in_map, seed, torch.full((), math.inf, device=dev)).amin(dim=2)
+
+    v_lo = torch.arange(nchunks, device=dev) * chunk
+    v_hi = torch.minimum(v_lo[None, :] + chunk, nv[:, None]) - 1  # (B, C)
+    d_lo = torch.minimum(q_first, q_last)[:, :, None] - v_hi[:, None, :].to(f32)
+    d_hi = torch.maximum(q_first, q_last)[:, :, None] - v_lo.to(f32)
+    pm = torch.maximum(pen(d_lo, 2), pen(d_hi, 2))  # (B, R, C)
+    curved = a != 0
+    dstar = (-b) / (2.0 * torch.where(curved, a, torch.ones_like(a)))
+    vertex = torch.minimum(torch.maximum(dstar[:, None, None], d_lo), d_hi)
+    pm = torch.where(curved[:, None, None],
+                     torch.maximum(pm, pen(vertex, 2)), pm)[..., None]
+    slack = 1e-3 + 1e-3 * (cm.abs() + pm.abs())
+    return (cm != _NEG_INF) & ~((cm + pm) + slack < thr[:, :, None, :])
 
 
 def _check_args(what, src, named, aux=None):

@@ -1,6 +1,6 @@
 """Input validation for the public detect API (a copy of
 `partsbaseddetector_tpu/utils/profiling.py::validate_image`) and the
-CUDA-event timer of the T1 harness and chip_smoke.py. The other
+CUDA-event and profiler timers of the tools and chip_smoke.py. The other
 profiling helpers of that module wait for the surfaces slice, where
 they move to torch.profiler."""
 
@@ -52,3 +52,26 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Mean device-busy time in ms of fn() over reps calls, from
+    torch.profiler's device-side events (kernels and copies). Unlike
+    `cuda_ms` it leaves out the gaps between launches, which dominate
+    event timings of kernels that take less than the host needs to
+    launch one (~10 us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return total_us / 1e3 / reps
