@@ -19,8 +19,10 @@ script exits non-zero without the final line):
                  run, a map too tall to stay resident and one resident in
                  more than 48 KB of shared memory, more than 65,535 maps
                  refused, the person26 VGA big-bucket shape)
-  4. conv        the conv kernel against filter_responses on the card at
-                 a person26 VGA bucket, |err| <= 1e-5 * sum|x*w|
+  4. conv        the conv kernel (3xTF32 on the tensor cores) against
+                 filter_responses on the card at a person26 VGA bucket,
+                 |err| <= 1e-5 * sum|x*w|; events and device ms beside
+                 plain, cuDNN, and the 3xTF32 and FP32 bounds
   5. golden      tests/fixtures/golden_model.npz through the port on the
                  card: 15 candidates, |dscore| < 2e-3, boxes within 5e-2
   6. person26    the 26-part model at 480x640: K1, K2 and T2 launched,
@@ -75,7 +77,9 @@ script exits non-zero without the final line):
                  launched, the CPU path's candidates and keep mask on a
                  120x160 crop, ms/image
  14. serving     the JAX bench's config 4 set-up (64 distinct uint8 VGA
-                 frames, person26): detect_many at microbatch 8 launches
+                 frames, person26): the pyramid features of the first 8
+                 frames alone and in one batch bit-identical; detect_many
+                 at microbatch 8 launches
                  K1, K2 and T2; its candidates and the pipelined path's
                  (prefetch 6, top 64) equal detect's on 8 frames within
                  1e-5 * max(1, |score|), parts 1e-4; sync ms/image,
@@ -128,10 +132,11 @@ CONV_RTOL = 1e-5
 DT_BWD_RTOL = 1e-5
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
 DEVICE = "cuda"
-# the H100 SXM's published peaks at its 700 W limit: HBM3 bytes/s and
-# FP32 (non-tensor-core) operations/s
+# the H100 SXM's published peaks at its 700 W limit: HBM3 bytes/s, FP32
+# (non-tensor-core) operations/s and dense TF32 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def log(phase: str, **fields) -> None:
@@ -163,6 +168,19 @@ def bound(nbytes: float, ops: float) -> dict:
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def conv_bound(nbytes: float, ops: float) -> dict:
+    """bound() for a kernel that runs its products on the tensor cores
+    in 3xTF32 (K2, T1): three TF32 products per f32 product over the
+    TF32 peak, with the FP32 pipes' figure beside it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3.0 * ops / TF32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_tc),
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bound_pipe": "tensor cores, 3xTF32",
+            "fp32_bound_ms": max(t_bytes, ops / FP32_OPS_PER_S * 1e3),
+            "bytes_bound_ms": t_bytes}
 
 
 def nbytes(*tensors) -> int:
@@ -273,8 +291,12 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     # (device_ms, the profiler's dt1d family: a call of the wrapper also
     # launches flatten_maps' small torch kernels, and at these kernel
     # times CUDA events around it time the host)
-    dev_y = profile_device(torch, lambda: [run_y() for _ in range(20)], 20)
-    dev_x = profile_device(torch, lambda: [run_x() for _ in range(20)], 20)
+    # the busier of two profiles each: the profiler now and then loses a
+    # pass's kernel events, which can only lower a reading
+    dev_y = max((profile_device(torch, lambda: [run_y() for _ in range(20)], 20)
+                 for _ in range(2)), key=lambda p: p["families"]["dt1d"])
+    dev_x = max((profile_device(torch, lambda: [run_x() for _ in range(20)], 20)
+                 for _ in range(2)), key=lambda p: p["families"]["dt1d"])
     dms_y, dms_x = dev_y["families"]["dt1d"], dev_x["families"]["dt1d"]
     ms_y, ms_x = cuda_ms(run_y, reps=20), cuda_ms(run_x, reps=20)
     plain_y = cuda_ms(lambda: dt_cuda.dt1d_plain(*yargs, 126, 1), reps=3)
@@ -300,13 +322,17 @@ def check_dt(torch, dt_cuda, gen) -> dict:
 
 
 def check_conv(torch, conv, conv_cuda, gen) -> dict:
-    """The conv kernel against filter_responses at a person26 VGA bucket
-    (plus a bank with zero-padded rows)."""
+    """The conv kernel (the grouped launch on one stack, its bank split
+    once) against filter_responses at the person26 VGA table shape (plus
+    a bank with zero-padded rows): events and the kernel's device time
+    beside the plain version, cuDNN and both bounds."""
     dev = DEVICE
     feat = torch.rand((5, 130, 170, 32), generator=gen).to(dev)
     filt = (0.1 * torch.randn((104, 5, 5, 32), generator=gen)).to(dev)
     filt[::3, 3:, :, :] = 0.0  # smaller filters zero-padded in the bank
-    got = conv_cuda.filter_responses_infer(feat, filt)
+    bank = conv_cuda.split_bank(filt)
+    run = lambda: conv_cuda.filter_responses_grouped([feat], filt, bank)[0]
+    got = run()
     want = conv.filter_responses(feat, filt)
     scale = conv.filter_responses(feat.abs(), filt.abs())
     torch.cuda.synchronize()
@@ -316,7 +342,12 @@ def check_conv(torch, conv, conv_cuda, gen) -> dict:
     ratio = (err / (CONV_RTOL * scale).clamp_min(1e-30)).max().item()
     if not bool((err <= CONV_RTOL * scale).all()):
         raise AssertionError(f"conv error exceeds 1e-5*sum|x*w| (x{ratio:.3g})")
-    ms = cuda_ms(lambda: conv_cuda.filter_responses_infer(feat, filt))
+    ms = cuda_ms(run, reps=20)
+    # the largest of three profiles: the profiler now and then loses a
+    # pass's kernel events, which can only lower a reading
+    dms = max(
+        profile_device(torch, lambda: [run() for _ in range(10)], 10)["families"]["conv"]
+        for _ in range(3))
     plain = cuda_ms(lambda: conv.filter_responses(feat, filt))
     # the library call: cuDNN's correlation on the same shapes, TF32 off
     x_nchw = feat.permute(0, 3, 1, 2).contiguous()
@@ -328,15 +359,91 @@ def check_conv(torch, conv, conv_cuda, gen) -> dict:
     library = cuda_ms(lambda: conv2d(x_nchw, w_nchw))
     s_, oh, ow, f_ = want.shape
     k = filt.shape[1] * filt.shape[2] * filt.shape[3]
-    bnd = bound(nbytes(feat, filt, want), 2.0 * s_ * oh * ow * k * f_)
+    ops = 2.0 * s_ * oh * ow * k * f_
+    bnd = conv_bound(nbytes(feat, filt, want), ops)
     max_err = err.max().item()
-    log("conv", shape="(5,130,170,32)x(104,5,5,32)",
+    log("conv_table", shape="(5,130,170,32)x(104,5,5,32)", arithmetic="3xTF32",
         max_abs_err=f"{max_err:.3e}", bound="1e-5*sum|x*w|",
         worst_err_over_bound=f"{ratio:.3g}", ms=f"{ms:.4f}",
+        device_ms=f"{dms:.4f}", tflops_device=f"{ops / dms / 1e9:.2f}",
         plain_ms=f"{plain:.4f}", library_conv2d_ms=f"{library:.4f}",
-        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"])
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, **bnd,
-            "library_ms": library}
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+        fp32_bound_ms=f"{bnd['fp32_bound_ms']:.4f}",
+        share_of_bound_device=f"{bnd['bound_ms'] / dms:.3f}")
+    return {"max_abs_err": max_err, "ms": ms, "device_ms": dms, "plain_ms": plain,
+            **bnd, "library_ms": library}
+
+
+def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card) -> dict:
+    """The K2 row: the conv's main-path launch, every bucket of one
+    person26 VGA detect against one split bank, captured from
+    det.detect(im). The launch again on the captured stacks equals the
+    detect's outputs bit for bit and each output is within 1e-5*sum|x*w|
+    of filter_responses; then its event time beside the plain version's,
+    cuDNN's (one conv2d per bucket) and the bounds of the detect's work.
+    dms: its device time, the `conv` family of the detect's profile (in
+    this process, after the phases before it, profiles of the captured
+    launch alone read part of its time or none: 0.66 ms a launch for ten
+    back-to-back launches where events read 0.81, and 0 for most single
+    ones)."""
+    calls = []
+    orig = pipeline.filter_responses_grouped
+
+    def record(feats, filt, bank=None):
+        outs = orig(feats, filt, bank)
+        calls.append((feats, filt, bank, [o.clone() for o in outs]))
+        return outs
+
+    pipeline.filter_responses_grouped = record
+    try:
+        det.detect(im)
+    finally:
+        pipeline.filter_responses_grouped = orig
+    if len(calls) != 1 or calls[0][2] is None:
+        raise AssertionError(f"conv: {len(calls)} grouped calls in a detect, or no split bank")
+    feats, filt, bank, seen = calls[0]
+    run = lambda: conv_cuda.filter_responses_grouped(feats, filt, bank)
+    before = conv_cuda.launches
+    got = run()
+    launches = conv_cuda.launches - before
+    ratio, err_max, nbytes_, ops = 0.0, 0.0, nbytes(filt), 0.0
+    for x, g, s_ in zip(feats, got, seen):
+        want = conv.filter_responses(x, filt)
+        scale = conv.filter_responses(x.abs(), filt.abs())
+        if g.shape != want.shape or not torch.equal(g, s_):
+            raise AssertionError(f"conv: bucket {tuple(x.shape)} differs from the detect's")
+        err = (g - want).abs()
+        if not bool((err <= CONV_RTOL * scale).all()):
+            raise AssertionError(f"conv: bucket {tuple(x.shape)} exceeds 1e-5*sum|x*w|")
+        ratio = max(ratio, (err / (CONV_RTOL * scale).clamp_min(1e-30)).max().item())
+        err_max = max(err_max, err.max().item())
+        s_n, oh, ow, f_ = want.shape
+        ops += 2.0 * s_n * oh * ow * filt[0].numel() * f_
+        nbytes_ += nbytes(x, want)
+    ms = cuda_ms(run, reps=20)
+    if not dms > 0:
+        raise AssertionError("conv: the detect's profile read no conv time")
+    plain = cuda_ms(lambda: [conv.filter_responses(x, filt) for x in feats], reps=3)
+    w_nchw = filt.permute(0, 3, 1, 2).contiguous()
+    x_nchw = [x.permute(0, 3, 1, 2).contiguous() for x in feats]
+    conv2d = torch.nn.functional.conv2d
+    library = cuda_ms(lambda: [conv2d(x, w_nchw) for x in x_nchw], reps=5)
+    bnd = conv_bound(nbytes_, ops)
+    log("conv", what="one person26 VGA detect's buckets, one grouped launch",
+        buckets=len(feats), launches=launches,
+        shapes=";".join("x".join(map(str, x.shape[:3])) for x in feats),
+        arithmetic="3xTF32", max_abs_err=f"{err_max:.3e}", bound="1e-5*sum|x*w|",
+        worst_err_over_bound=f"{ratio:.3g}", equal_to_detect=True,
+        gflop=f"{ops / 1e9:.3f}", mbytes=f"{nbytes_ / 1e6:.1f}", ms=f"{ms:.4f}",
+        device_ms_of_detect_profile=f"{dms:.4f}", tflops_device=f"{ops / dms / 1e9:.2f}",
+        plain_ms=f"{plain:.4f}", library_conv2d_ms=f"{library:.4f}",
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+        fp32_bound_ms=f"{bnd['fp32_bound_ms']:.4f}",
+        share_of_bound_device=f"{bnd['bound_ms'] / dms:.3f}", card=f"'{card}'")
+    if launches != 1:
+        raise AssertionError(f"conv: a detect's buckets took {launches} launches")
+    return {"max_abs_err": err_max, "ms": ms, "device_ms": dms, "plain_ms": plain,
+            **bnd, "library_ms": library, "gflop": ops / 1e9}
 
 
 def check_golden(np, pbd) -> None:
@@ -431,7 +538,7 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
 # kernel families of a profile, by a piece of the kernel's name (first
 # match wins: the window and backward DT names contain the forward's)
 FAMILIES = (("dt1d_window", "dt1d_window"), ("dt1d_bwd", "dt1d_axis2_bwd"),
-            ("dt1d", "dt1d_axis2"), ("conv", "conv_fp32"),
+            ("dt1d", "dt1d_axis2"), ("conv", "conv3xtf32"),
             ("transpose", "transpose32"), ("fft", "fft"))
 
 
@@ -463,11 +570,11 @@ def device_profile(torch, prof, per: float = 1.0) -> dict:
 
 
 def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
-                     phase: str = "profile") -> None:
+                     phase: str = "profile") -> dict:
     """torch.profiler over `reps` person26 VGA detects: device time per
     image by kernel family and for the busiest kernels, and the idle
     share against the unprofiled wall time `wall_ms` (the profiler's own
-    host cost inflates the profiled one)."""
+    host cost inflates the profiled one). Returns the families."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -484,6 +591,7 @@ def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
         device_ops_per_image=f"{got['ops']:.0f}",
         **{f"{k}_ms": f"{v:.3f}" for k, v in got["families"].items()},
         top=got["top"])
+    return got["families"]
 
 
 def check_dt_bwd(torch, dt_cuda, gen) -> dict:
@@ -1162,6 +1270,30 @@ def profile_device(torch, run, per: int) -> dict:
     return device_profile(torch, prof, per)
 
 
+def pyramid_batch_invariant(torch, np, frames) -> int:
+    """The gate under the serving tolerance: person26's pyramid features
+    (buckets_per_octave=2) of each frame alone equal theirs inside the
+    batch of all of them, bit for bit. Returns the buckets compared."""
+    from partsbaseddetector_tpu_torch import make_person_like_model
+    from partsbaseddetector_tpu_torch.models.model import pack_model
+    from partsbaseddetector_tpu_torch.ops import pyramid
+
+    packed = pack_model(make_person_like_model())
+    fh, fw = packed.filters.shape[1:3]
+    plan = pyramid.build_plan(frames[0].shape[:2], packed.spec, fh, fw,
+                              buckets_per_octave=2)
+    batch = torch.as_tensor(np.stack(frames), device=DEVICE).float()
+    together = pyramid.build_pyramid_features(batch, plan, packed.spec)
+    for i in range(len(frames)):
+        alone = pyramid.build_pyramid_features(batch[i : i + 1], plan, packed.spec)
+        for b, (x, y) in enumerate(zip(alone, together)):
+            if not torch.equal(x[0], y[i]):
+                raise AssertionError(
+                    f"serving: frame {i}'s bucket {b} features differ alone and "
+                    f"in a batch of {len(frames)} (max {(x[0] - y[i]).abs().max().item():.3e})")
+    return len(frames) * len(together)
+
+
 def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
     """The JAX bench's config 4 set-up (bench.py:654-657): 64 distinct
     uint8 480x640 frames clip(im + i), person26, buckets_per_octave=2,
@@ -1175,6 +1307,7 @@ def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
               for i in range(64)]
     det.detect_many(frames[:8], microbatch=8)  # warm-up: plans, allocator
     det.detect_many(frames[:8], prefetch=6, readback_top=64)
+    invariant = pyramid_batch_invariant(torch, np, frames[:8])
 
     # the main path, counts at 0 just before it and read just after;
     # then the other two paths, and the same three again (in turns)
@@ -1211,6 +1344,7 @@ def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
     log("serving", frames="64 distinct uint8 " + "x".join(map(str, im.shape[:2])),
         buckets_per_octave=2,
         candidates_frame0=len(want[0]), match_first_8="microbatch 8 and pipelined",
+        pyramid_bit_identical_b1_b8=f"{invariant} (frame, bucket) pairs",
         microbatch8_launches=",".join(f"{k}:{v}" for k, v in counts.items()),
         sync_detect_ms_per_image=",".join(f"{t:.3f}" for t in sync_ms),
         pipelined_prefetch6_top64_images_per_s=",".join(f"{t:.3f}" for t in pipe_ips),
@@ -1328,10 +1462,10 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
     """T1's port on the JAX tool's seeded default inputs (RandomState(0),
     (5, 126, 166, 32) x (104, 5, 5, 32)) at toh 1, 2, 4 and 8: within
     1e-5 * sum|x*w| of its plain version and equal to K2 bit for bit
-    (both sum in (i, j, c) order with fmaf); ms at each toh beside K2,
+    (one 3xTF32 core, csrc/conv_core.cuh); ms at each toh beside K2,
     conv2d and the plain version, in turns; then one run of the harness
     itself, `python -m partsbaseddetector_tpu_torch.tools.conv_proto`,
-    whose launch count is the row's."""
+    whose launch count and profiler device time (toh 2) are the row's."""
     dev = DEVICE
     s, f, h, w = 5, 104, 126, 166
     feat_np, filt_np = harness.seeded_inputs(s, h, w, f)
@@ -1341,7 +1475,9 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
     w2 = cp.weights_k_major(filt)
     want = cp.conv_proto_plain(feat_t, w2, f)
     scale = cp.conv_proto_plain(feat_t.abs(), w2.abs(), f)
-    k2 = conv_cuda.filter_responses_infer(feat, filt)
+    bank = conv_cuda.split_bank(filt)
+    run_k2 = lambda: conv_cuda.filter_responses_grouped([feat], filt, bank)[0]
+    k2 = run_k2()
     tohs = (1, 2, 4, 8)
     errs = {}
     for toh in tohs:
@@ -1361,14 +1497,14 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
     for _ in range(2):  # in turns
         for t in tohs:
             ms[t].append(cuda_ms(lambda t=t: cp.conv_proto(feat_t, w2, f, t), reps=20))
-        k2_ms.append(cuda_ms(lambda: conv_cuda.filter_responses_infer(feat, filt), reps=20))
+        k2_ms.append(cuda_ms(run_k2, reps=20))
         lib_ms.append(cuda_ms(lambda: conv2d(x_nchw, w_nchw), reps=20))
         plain_ms.append(cuda_ms(lambda: cp.conv_proto_plain(feat_t, w2, f), reps=5))
     ms = {t: min(v) for t, v in ms.items()}
     k2_ms, lib_ms, plain_ms = min(k2_ms), min(lib_ms), min(plain_ms)
     _, oh, ow, _ = want.shape
     ops = 2.0 * s * oh * ow * cp.FH * cp.FW * cp.C * f
-    bnd = bound(nbytes(feat_t, w2, want), ops)
+    bnd = conv_bound(nbytes(feat_t, w2, want), ops)
 
     proc = subprocess.run(
         [sys.executable, "-m", "partsbaseddetector_tpu_torch.tools.conv_proto"],
@@ -1379,6 +1515,10 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     if not res.get("equal_to_k2") or res.get("launches") != 1:
         raise AssertionError(f"conv_proto harness: {res}")
+    # the kernel's device time at toh 2 from the harness's own process: in
+    # this one, after the phases before it, the profiler has read no T1
+    # kernel time, while a fresh process reads it
+    dms = res["device_ms"]
     tflops = lambda t: ops / t / 1e9
     log("conv_proto", shape="(5,126,166,32)x(104,5,5,32)", seed="RandomState(0)",
         equal_to_k2="bit for bit at toh 1,2,4,8",
@@ -1388,12 +1528,13 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
         tflops_by_toh=",".join(f"{t}:{tflops(v):.2f}" for t, v in ms.items()),
         k2_ms=f"{k2_ms:.4f}", library_conv2d_ms=f"{lib_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
-        bound_by=bnd["bound_by"], gflop=f"{ops / 1e9:.3f}",
+        bound_by=bnd["bound_by"], fp32_bound_ms=f"{bnd['fp32_bound_ms']:.4f}",
+        toh2_device_ms=f"{dms:.4f}", gflop=f"{ops / 1e9:.3f}",
         harness=f"rc 0, toh 2 {res['ms']:.4f} ms, K2 {res['k2_ms']:.4f} ms, "
                 f"conv2d {res['conv2d_ms']:.4f} ms")
     return {"launches": res["launches"], "max_abs_err": max(errs.values()),
-            "ms": ms[2], "ms_by_toh": ms, "k2_ms": k2_ms, "plain_ms": plain_ms,
-            **bnd, "library_ms": lib_ms}
+            "ms": ms[2], "device_ms": dms, "ms_by_toh": ms, "k2_ms": k2_ms,
+            "plain_ms": plain_ms, **bnd, "library_ms": lib_ms}
 
 
 def match_boxes(bx_ref, sc_ref, vd_ref, bx, sc, vd, tol_px=0.75):
@@ -1579,7 +1720,7 @@ def main() -> int:
 
         import partsbaseddetector_tpu_torch as pbd
         import partsbaseddetector_tpu_torch.train as pbd_train
-        from partsbaseddetector_tpu_torch import kernels
+        from partsbaseddetector_tpu_torch import kernels, pipeline
         from partsbaseddetector_tpu_torch.ops import conv, conv_cuda, dt_cuda, nms
         from partsbaseddetector_tpu_torch.ops import conv_proto_cuda as cp
         from partsbaseddetector_tpu_torch.tools import conv_proto as harness
@@ -1612,12 +1753,14 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     dt_row, xpass_row = check_dt(torch, dt_cuda, gen)
-    conv_row = check_conv(torch, conv, conv_cuda, gen)
+    conv_table = check_conv(torch, conv, conv_cuda, gen)
     check_golden(np, pbd)
     counts, ms, det, im = check_person26(
         torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card
     )
-    profile_person26(torch, det, im, ms)
+    families = profile_person26(torch, det, im, ms)
+    conv_row = check_conv_detect(torch, conv, conv_cuda, pipeline, det, im,
+                                 families["conv"], card)
     count_dt_glue(torch, dt_cuda, dtm, det, im)
     tp_row = check_transpose(torch, np, tc, dtm, gen, det, im)
     bwd_row = check_dt_bwd(torch, dt_cuda, gen)
@@ -1650,10 +1793,12 @@ def main() -> int:
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d_aux"], "hybrid_launches": hyb["dt1d_aux"],
          **xpass_row},
-        {"name": "conv_fp32", "route": "cuda",
+        {"name": "conv3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
+         "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/conv_pallas.py:101",
-         "launches": counts["conv"], "hybrid_launches": hyb["conv"], **conv_row},
+         "launches": counts["conv"], "hybrid_launches": hyb["conv"], **conv_row,
+         "table_shape": conv_table},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:809",
@@ -1667,8 +1812,9 @@ def main() -> int:
          "replaces": "tools/transpose_kernel_probe.py:25",
          "launches": serving["counts"]["transpose"],
          "hybrid_launches": hyb["transpose"], **tp_row},
-        {"name": "conv_proto_fp32", "route": "cuda",
+        {"name": "conv_proto_3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
+         "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
          "replaces": "tools/conv_pallas_proto.py:62",
          "pallas_call": "tools/conv_pallas_proto.py:88", **t1_row},
     ]}

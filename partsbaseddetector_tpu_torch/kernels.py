@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers it includes) is
+compiled by `nvcc` into one shared library with
 a plain C interface, loaded with `ctypes`. The build runs at first use,
 into `build/torch_kernels/` at the root of the checkout, and is keyed on
 a hash of the sources and flags: a changed source builds a new library,
@@ -38,14 +39,15 @@ _SIGNATURES = {
     # src, aux, a, b, shift, nvalid, out_valid, out, ptr, batch, h, w, dlen,
     # stream
     "pbd_dt1d_window_axis2_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
-    # feat, wk, out, s, h, w, c, fh, fw, fp, stream
-    "pbd_conv_fp32": ([_P] * 3 + [_I] * 7 + [_P], _I),
-    "pbd_conv_smem_bytes": ([_I] * 3, ctypes.c_longlong),
-    "pbd_conv_tile_filters": ([], _I),
-    # feat_t, w2, out, s, h, c, w, fh, fw, fp, toh, stream
-    "pbd_conv_proto_fp32": ([_P] * 3 + [_I] * 8 + [_P], _I),
-    "pbd_conv_proto_smem_bytes": ([_I], ctypes.c_longlong),
-    "pbd_conv_proto_tile_filters": ([], _I),
+    # c, fh, fw, f
+    "pbd_conv_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+    # feats, outs, s, h, w (host arrays), n, filt, c, f, fh, fw, stream
+    "pbd_conv_3xtf32_grouped": ([_P] * 5 + [_I] + [_P] + [_I] * 4 + [_P], _I),
+    "pbd_conv_max_groups": ([], _I),
+    # feat_t, w2, out, s, h, c, w, fh, fw, f, fp, toh, stream
+    "pbd_conv_proto_3xtf32": ([_P] * 3 + [_I] * 9 + [_P], _I),
+    # c, fh, fw, f, toh
+    "pbd_conv_proto_smem_bytes": ([_I] * 5, ctypes.c_longlong),
     "pbd_conv_proto_max_toh": ([], _I),
     # src0, dst0, src1 or null, dst1 or null, batch, h, w, stream
     "pbd_transpose32": ([_P] * 4 + [_I] * 3 + [_P], _I),
@@ -70,10 +72,15 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources lives."""
+    """Where the library for the current sources (and the headers they
+    include) lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpbd_kernels_{h.hexdigest()[:16]}.so"

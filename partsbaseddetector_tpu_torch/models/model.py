@@ -31,6 +31,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.conv import split_tf32
+
 FLEN = 32
 NORIENT = 18
 
@@ -223,6 +225,11 @@ class DeviceModel:
     filters: torch.Tensor  # (F, fh_max, fw_max, flen) float32
     components: List[DeviceComponent]
     device: torch.device
+    # on CUDA: (2, F, fh_max, fw_max, flen), the filters split into their
+    # TF32 big and small pieces, the operand the conv kernel stages
+    # (ops/conv_cuda.py::split_bank), made once here; None on the CPU.
+    # Replace it with `filters`.
+    filters_split: Optional[torch.Tensor] = None
 
 
 def to_device(packed: PackedModel, device) -> DeviceModel:
@@ -244,8 +251,10 @@ def to_device(packed: PackedModel, device) -> DeviceModel:
         )
         for c in packed.components
     ]
+    filters = f32(packed.filters)
+    split = torch.stack(split_tf32(filters)) if device.type == "cuda" else None
     return DeviceModel(
-        filters=f32(packed.filters), components=comps, device=device
+        filters=filters, components=comps, device=device, filters_split=split
     )
 
 

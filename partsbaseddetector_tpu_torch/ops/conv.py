@@ -10,6 +10,11 @@ kernel (ops/conv_cuda.py) is held against, and is the training path's
 conv on every device: autograd differentiates it in the filters, as the
 JAX package's training differentiates its XLA conv.
 
+`filter_responses_3xtf32_plain` (with `split_tf32`) states the CUDA
+kernel's arithmetic, 3xTF32 on the tensor cores, in plain torch: the CPU
+tests hold it within 1e-5 * sum|x*w| of `filter_responses`, the rule the
+kernel meets on the card.
+
 Filters of different sizes are zero-padded to one (fh, fw): zero taps
 contribute nothing, so the valid correlation of a padded filter is the
 true response on the shared top-left-anchored grid. Rows and columns
@@ -44,6 +49,50 @@ def filter_responses(features: torch.Tensor, filters: torch.Tensor) -> torch.Ten
         for j in range(fw):
             tap = features[:, i : i + oh, j : j + ow, :].reshape(-1, c)
             out += (tap @ filters[:, i, j, :].T).reshape(s, oh, ow, f)
+    return out
+
+
+def split_tf32(x: torch.Tensor):
+    """(big, small), the 3xTF32 split of f32 x: big = x rounded to TF32
+    (10 mantissa bits) to nearest with ties away from zero, as the card's
+    `cvt.rna.tf32.f32` does, and small = x - big rounded the same way.
+    Both are f32 tensors whose low 13 bits are zero; x - big is exact and
+    |x - big - small| <= 2^-22 |x| for normal x. Done on the int32 view:
+    adding half of the dropped bits to the magnitude, then clearing them."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def filter_responses_3xtf32_plain(
+    features: torch.Tensor, filters: torch.Tensor
+) -> torch.Tensor:
+    """filter_responses' function with the arithmetic of the K2 kernel
+    (csrc/conv_core.cuh): both operands split by split_tf32, each tap's
+    sum taken as small*big + big*small + big*big, its pieces' partial
+    products exact in f32, then added to the running total. It isolates
+    the split's own error: the kernel is held to the same rule, within
+    1e-5 * sum|x*w| of filter_responses. Inputs f32; TF32 matmul off."""
+    s, h, w, c = features.shape
+    f, fh, fw, fc = filters.shape
+    if fc != c:
+        raise ValueError(f"channel mismatch: features {c}, filters {fc}")
+    oh, ow = h - fh + 1, w - fw + 1
+    xb, xs = split_tf32(features)
+    wb, ws = split_tf32(filters)
+    out = torch.zeros((s, oh, ow, f), dtype=torch.float32, device=features.device)
+    for i in range(fh):
+        for j in range(fw):
+            tb = xb[:, i : i + oh, j : j + ow, :].reshape(-1, c)
+            ts = xs[:, i : i + oh, j : j + ow, :].reshape(-1, c)
+            part = ts @ wb[:, i, j, :].T + tb @ ws[:, i, j, :].T
+            part = part + tb @ wb[:, i, j, :].T
+            out += part.reshape(s, oh, ow, f)
     return out
 
 

@@ -4,8 +4,10 @@
 kernel `kernel` (T1), the prototype of K2 that takes the features
 pre-transposed to (S, H, C, W) and contracts an explicit patch matrix
 against K-major weights. On a CUDA tensor it launches
-`csrc/conv_proto.cu` (FP32 FMA, no TF32: T1 runs at Precision.HIGHEST);
-on a CPU tensor it runs `conv_proto_plain`. No detect or train path runs
+`csrc/conv_proto.cu`, K2's 3xTF32 tensor-core core fed from T1's layouts
+(T1 runs at Precision.HIGHEST; single-pass TF32 stays forbidden), whose
+outputs equal K2's bit for bit; on a CPU tensor it runs
+`conv_proto_plain`. No detect or train path runs
 it: its path is its harness, `tools/conv_proto.py`, the K2 tuning
 harness.
 
@@ -13,8 +15,8 @@ Layouts, as in the tool: feat_t (S, H, C, W); w2 (K = fh*fw*C, FP) with
 row (i*fw + j)*C + c holding filters[:, i, j, c] and zero columns past F
 (`weights_k_major`); the result is (S, H-fh+1, W-fw+1, F). The tool pads
 H to NOH*TOH + FH - 1 rows and F to a multiple of 128; the kernel needs
-no row padding (it masks the ragged row block) and pads F to its own
-filter tile, 64.
+no row padding (it masks the ragged row block), reads the first F
+columns of w2 and writes the (S, OH, OW, F) result itself.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .. import kernels
 
 # T1's fixed shapes (tools/conv_pallas_proto.py:30)
 C, FH, FW = 32, 5, 5
-# the kernel's filter tile (csrc/conv_proto.cu kTileF)
+# w2's columns are padded to a multiple of TILE_F, as the tool pads them
+# (the kernel reads only the first F)
 TILE_F = 64
 
 # launches of the CUDA kernel by conv_proto (the plain version does not
@@ -103,35 +106,36 @@ def _conv_proto_cuda(feat_t, w2, f, toh, fh, fw):
     s, h, c, w = feat_t.shape
     fp = w2.shape[1]
     lib = kernels.library()
-    if lib.pbd_conv_proto_tile_filters() != TILE_F:
-        raise RuntimeError("conv_proto: the kernel's filter tile is not TILE_F")
     if toh > lib.pbd_conv_proto_max_toh():
         raise ValueError(
             f"conv_proto: toh {toh} exceeds the kernel's "
             f"{lib.pbd_conv_proto_max_toh()} positions per block"
         )
-    smem = lib.pbd_conv_proto_smem_bytes(c)
+    smem = lib.pbd_conv_proto_smem_bytes(c, fh, fw, f, toh)
     if smem > 227 * 1024:
-        raise ValueError(f"conv_proto: {c} channels need {smem} B of shared memory")
+        raise ValueError(f"conv_proto: a {fh}x{fw}x{c} patch at toh {toh} "
+                         f"needs {smem} B of shared memory")
+    from .conv_cuda import split_bank
+
     feat_t = feat_t.contiguous()
-    w2 = w2.contiguous()
-    out = torch.empty((s, h - fh + 1, w - fw + 1, fp), dtype=torch.float32,
+    w2 = split_bank(w2)  # (2, K, FP): the TF32 pieces the kernel stages
+    out = torch.empty((s, h - fh + 1, w - fw + 1, f), dtype=torch.float32,
                       device=feat_t.device)
     with torch.cuda.device(feat_t.device):
-        rc = lib.pbd_conv_proto_fp32(
+        rc = lib.pbd_conv_proto_3xtf32(
             feat_t.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            s, h, c, w, fh, fw, fp, toh,
+            s, h, c, w, fh, fw, f, fp, toh,
             torch.cuda.current_stream(feat_t.device).cuda_stream,
         )
     kernels.check(rc, "conv_proto kernel launch")
     launches += 1
-    return out[..., :f]
+    return out
 
 
 def conv_proto(feat_t: torch.Tensor, w2: torch.Tensor, f: int, toh: int,
                fh: int = FH, fw: int = FW) -> torch.Tensor:
     """T1: feat_t (S, H, C, W) and K-major w2 (fh*fw*C, FP) ->
-    (S, H-fh+1, W-fw+1, f), a view of the first f of FP filters. toh
+    (S, H-fh+1, W-fw+1, f), the first f of FP filters. toh
     output rows per block (1 <= toh <= 128 on the card) is a blocking
     knob only: the result does not depend on it. The CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""

@@ -3,8 +3,11 @@
 Port of `partsbaseddetector_tpu/ops/hog.py::hog_features`. The
 trilinear cell binning of features.cc is a fixed 2*sbin tent filter
 applied with stride sbin to the (orientation one-hot x magnitude) map,
-so the histogram stage is two matrix products; everything after it is
-elementwise math and slicing.
+so the histogram stage is two banded linear maps (the JAX package's two
+matrix products), each summed tap by tap in a fixed order
+(`ops/resize.py::apply_banded`); everything after it is elementwise math,
+slicing and fixed-order sums (`tree_sum`), so no rounding depends on the
+batch, the threads or the device.
 
 Semantics kept from the reference (ops/reference.py::hog):
   - gradients from the color channel with the strongest magnitude,
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from ..utils.rounding import cround
 from . import reference
-from .resize import device_constant
+from .resize import apply_banded, device_constant, tree_sum
 
 NORIENT = 18
 FLEN = 32
@@ -64,16 +67,15 @@ def _orientation_units() -> np.ndarray:
     return np.stack([reference.HOG_UU, reference.HOG_VV]).astype(np.float32)
 
 
-def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
-    """HOG of (B, H, W, 3) f32 images -> (B, bh-2, bw-2, 32) features.
-    Each image's histogram products have the single image's shapes
-    (ops/resize.py), so an image computes exactly as it does alone."""
-    nb, h, w, _ = im.shape
-    bh = cround(h / sbin)
-    bw = cround(w / sbin)
-    oh, ow = max(bh - 2, 0), max(bw - 2, 0)
-    vh, vw = bh * sbin, bw * sbin
-    dev, dtype = im.device, im.dtype
+def hog_choices(im: torch.Tensor, sbin: int):
+    """The discrete choices of the HOG of (B, H, W, 3) f32 images, per
+    pixel of the visible grid's interior, (B, vh-2, vw-2) each: the
+    colour channel with the strongest gradient (first of R, G, B at a
+    tie), the snapped orientation in [0, 18), and the chosen gradient's
+    squared magnitude."""
+    _, h, w, _ = im.shape
+    vh, vw = cround(h / sbin) * sbin, cround(w / sbin) * sbin
+    dev = im.device
 
     # --- gradients on the interior grid, edge-replicated to the visible
     # grid: grad maps cover pixel coords y in [1, h-2], x in [1, w-2]
@@ -97,22 +99,35 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
     inter = torch.stack([dots, -dots], dim=-1).reshape(*dots.shape[:-1], 18)
     idx = torch.argmax(inter, dim=-1)
     best_o = (idx >> 1) + (NORIENT // 2) * (idx & 1)
+    return ci[..., 0], best_o, gv
+
+
+def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
+    """HOG of (B, H, W, 3) f32 images -> (B, bh-2, bw-2, 32) features.
+    No operation's rounding depends on B (the tent maps are fixed-order
+    elementwise sums, ops/resize.py), so an image computes exactly as it
+    does alone."""
+    nb, h, w, _ = im.shape
+    bh = cround(h / sbin)
+    bw = cround(w / sbin)
+    oh, ow = max(bh - 2, 0), max(bw - 2, 0)
+    vh, vw = bh * sbin, bw * sbin
+    dev, dtype = im.device, im.dtype
+    _, best_o, gv = hog_choices(im, sbin)
 
     mag = torch.sqrt(gv)
     onehot = F.one_hot(best_o, NORIENT).to(dtype) * mag[..., None]
 
     # --- histogram stage: the interior map back on the full pixel frame
     # (border pixels contribute nothing), cells aggregated by two
-    # separable strided tent products
+    # separable strided tent maps, each a fixed sum of its 2*sbin taps
     onehot = F.pad(onehot, (0, 0, 1, 1, 1, 1))  # -> (B, vh, vw, 18)
-    my = device_constant(_hist_matrix, bh, vh, sbin, device=dev)
-    mx = device_constant(_hist_matrix, bw, vw, sbin, device=dev)
-    tmp = torch.matmul(my, onehot.reshape(nb, vh, vw * NORIENT))
-    hist = torch.matmul(mx, tmp.reshape(nb, bh, vw, NORIENT))  # (B, bh, bw, 18)
+    tmp = apply_banded(onehot, 1, _hist_matrix, bh, vh, sbin)
+    hist = apply_banded(tmp, 2, _hist_matrix, bw, vw, sbin)  # (B, bh, bw, 18)
 
     # --- block energy and 2x2 neighborhood sums
     half = NORIENT // 2
-    norm = torch.sum(torch.square(hist[..., :half] + hist[..., half:]), dim=-1)
+    norm = tree_sum(torch.square(hist[..., :half] + hist[..., half:]), -1)
     s2 = (norm[:, :-1, :-1] + norm[:, :-1, 1:] + norm[:, 1:, :-1]
           + norm[:, 1:, 1:])
     inv = torch.rsqrt(s2 + reference.HOG_EPS)
@@ -124,11 +139,11 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
 
     src = hist[:, 1 : 1 + oh, 1 : 1 + ow, :]  # (B, oh, ow, 18)
     hclamp = torch.clamp(src[..., None] * ns[..., None, :], max=0.2)
-    sensitive = 0.5 * hclamp.sum(-1)
-    texture = 0.2357 * hclamp.sum(-2)  # (B, oh, ow, 4)
+    sensitive = 0.5 * tree_sum(hclamp, -1)
+    texture = 0.2357 * tree_sum(hclamp, -2)  # (B, oh, ow, 4)
 
     ssum = src[..., :half] + src[..., half:]
-    insens = 0.5 * torch.clamp(ssum[..., None] * ns[..., None, :], max=0.2).sum(-1)
+    insens = 0.5 * tree_sum(torch.clamp(ssum[..., None] * ns[..., None, :], max=0.2), -1)
 
     occl = torch.zeros((nb, oh, ow, 1), dtype=dtype, device=dev)
     return torch.cat([sensitive, insens, texture, occl], dim=-1)

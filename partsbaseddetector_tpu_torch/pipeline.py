@@ -31,7 +31,7 @@ import torch.utils.checkpoint
 from . import depth as depth_mod
 from .models.model import DeviceModel, PackedModel
 from .ops.conv import fft_filter_spectra, filter_responses, filter_responses_fft
-from .ops.conv_cuda import filter_responses_infer
+from .ops.conv_cuda import filter_responses_grouped
 from .ops.dp import tree_min_sum
 from .ops.pyramid import (
     PyramidPlan,
@@ -186,19 +186,23 @@ def root_scores(
         ]
 
     neg = -math.inf if params is None else -1e10
+    # the conv takes each bucket's B*S_b maps image-major; the spatial
+    # inference engine runs every bucket in one K2 launch
+    flat = [f.reshape(-1, *f.shape[2:]) for f in feats]
+    if params is None and engine == "spatial":
+        spatial = filter_responses_grouped(flat, dmodel.filters, dmodel.filters_split)
     resps: List[torch.Tensor] = []
     vhs: List[np.ndarray] = []
     vws: List[np.ndarray] = []
     for b, bucket in enumerate(plan.buckets):
-        # the conv takes the B*S_b maps image-major; the Fourier engine
-        # keeps the image axis and broadcasts its spectra over it
-        feat = feats[b].reshape(-1, *feats[b].shape[2:])
+        # the Fourier engine keeps the image axis and broadcasts its
+        # spectra over it
         if params is not None:
-            resp = filter_responses(feat, params["filters"])
+            resp = filter_responses(flat[b], params["filters"])
         elif engine == "fourier":
             resp = filter_responses_fft(feats[b], dmodel.filters, fft_spectra[b])
         else:
-            resp = filter_responses_infer(feat, dmodel.filters)
+            resp = spatial[b]
         resp = resp.reshape(nimg, -1, *resp.shape[-3:])
         if collect_responses is not None:
             # real placements never index masked cells, and the re-score

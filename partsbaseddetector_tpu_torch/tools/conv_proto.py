@@ -13,7 +13,8 @@ against `conv_proto_plain` (max |err| < 2e-3, the tool's check, and
 |err| <= 1e-5 * sum|x*w| per output) and against the plain K2
 correlation `ops/conv.py::filter_responses`; `launches` counts the
 kernel launches of that checked call. On the card it then times
-T1 with CUDA events (the mean of 20 calls) and prints ms and TFLOP/s
+T1 with CUDA events (the mean of 20 calls; `device_ms` beside it, the
+profiler's device time) and prints ms and TFLOP/s
 beside K2
 (`ops/conv_cuda.py`) and `torch.nn.functional.conv2d` (cuDNN, TF32 off)
 on the same inputs, and whether T1 equals K2 bit for bit. It runs on the
@@ -41,7 +42,7 @@ from ..ops.conv_proto_cuda import (
     weights_k_major,
 )
 from ..utils.device import resolve_device
-from ..utils.profiling import cuda_ms
+from ..utils.profiling import cuda_ms, device_ms
 
 RTOL = 1e-5  # per output, of sum|x*w|
 ATOL = 2e-3  # the tool's check against lax.conv
@@ -86,16 +87,19 @@ def run(s: int, f: int, h: int, w: int, toh: int, device) -> dict:
            "max_abs_err": max_err, "max_abs_err_vs_k2_plain": ref_err.max().item(),
            "gflop": flops / 1e9, "launches": launches}
     if dev.type == "cuda":
-        from ..ops.conv_cuda import filter_responses_infer
+        from ..ops.conv_cuda import filter_responses_grouped, split_bank
 
         torch.backends.cudnn.allow_tf32 = False
-        k2 = filter_responses_infer(feat, filt)
+        bank = split_bank(filt)  # K2's bank is split once per model
+        run_k2 = lambda: filter_responses_grouped([feat], filt, bank)[0]
+        k2 = run_k2()
         res["equal_to_k2"] = bool(torch.equal(got, k2))
         x_nchw = feat.permute(0, 3, 1, 2).contiguous()
         w_nchw = filt.permute(0, 3, 1, 2).contiguous()
         conv2d = torch.nn.functional.conv2d
         res["ms"] = cuda_ms(lambda: conv_proto(feat_t, w2, f, toh), REPS)
-        res["k2_ms"] = cuda_ms(lambda: filter_responses_infer(feat, filt), REPS)
+        res["device_ms"] = device_ms(lambda: conv_proto(feat_t, w2, f, toh), REPS)
+        res["k2_ms"] = cuda_ms(run_k2, REPS)
         res["conv2d_ms"] = cuda_ms(lambda: conv2d(x_nchw, w_nchw), REPS)
         for key in ("ms", "k2_ms", "conv2d_ms"):
             res[key.replace("ms", "tflops")] = flops / res[key] / 1e9

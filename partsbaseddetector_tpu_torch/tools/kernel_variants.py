@@ -1,26 +1,34 @@
-"""Time the DT kernel (K1), its variants and the transpose (T2) on the card.
+"""Time the DT kernel (K1), the conv (K2, T1), their variants and the
+transpose (T2) on the card.
 
-A variant is `csrc/dt1d.cu` with some of its `constexpr` tuning constants
-replaced; the transpose has none and is timed as it is. With
-`--baseline-dir`, an earlier `dt1d.cu` and `transpose.cu` are timed
-beside them: a redesign's before and after on the same inputs in one
-process. Each source is compiled on its own (one `nvcc` each, all started
-together), loaded with `ctypes`, held against the kernel's plain version
-bit for bit and timed by direct launches, all in turns, so that their
-times compare: K1 with CUDA events, T2 (faster than the host launches
-it) by the profiler's device time with the event time beside it:
+A variant is `csrc/dt1d.cu` or `csrc/conv.cu` (with its core
+`csrc/conv_core.cuh` inlined) with some of its `constexpr` tuning
+constants replaced; the transpose has none and is timed as it is, T1
+(`csrc/conv_proto.cu`) at several toh. With `--baseline-dir`, an earlier
+`dt1d.cu`, `transpose.cu` and `conv.cu` are timed beside them: a
+redesign's before and after on the same inputs in one process. Each
+source is compiled on its own (one `nvcc` each, all started together),
+loaded with `ctypes`, held against the kernel's plain version (bit for
+bit; the conv within 1e-5 * sum|x*w|) and timed by direct launches, all
+in turns, so that their times compare: K1 with CUDA events, T2 and the
+conv by the profiler's device time with the event time beside it:
 
     python -m partsbaseddetector_tpu_torch.tools.kernel_variants
     python -m partsbaseddetector_tpu_torch.tools.kernel_variants \\
-        --baseline-dir old_csrc   # also time an earlier dt1d.cu / transpose.cu
+        --baseline-dir old_csrc   # also time an earlier dt1d.cu / transpose.cu / conv.cu
+    python -m partsbaseddetector_tpu_torch.tools.kernel_variants --only conv
 
 Shapes: K1 at the person26 VGA finest bucket, y (80, 126, 166) then x with
 aux (80, 166, 126), on random maps (N(0, 9) sources, a in [-0.06, -0.01])
 and on spiky maps (responses near -1 with a few peaks, a = -0.01); T2 at
 (80, 126, 166) and (1280, 126, 166), a single f32 array and an (f32,
 i32) pair, beside torch's transposed copy and a contiguous copy of the
-same bytes. The last line of the output is one JSON object with every
-time in ms and the card's name and power limit.
+same bytes; the conv at the person26 VGA table shape (5, 130, 170, 32) x
+(104, 5, 5, 32), and over the ten buckets of one person26 VGA detect
+(buckets_per_octave=2, the shapes captured from a detect on the card),
+one launch per bucket, and for the default source also all ten in one
+grouped launch (the pipeline's). The last line of the output is one JSON object
+with every time in ms and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -51,8 +59,21 @@ DT_VARIANTS = {
 }
 
 
+CONV_VARIANTS = {
+    "default": {},
+    # output rows per block (of 128 positions): 16 x 8 instead of 8 x 16
+    "rows16": {"kRows": 16},
+    # a ring of three filter slices
+    "stages3": {"kStages": 3},
+}
+
+
 def variant_source(path: Path, consts: dict) -> str:
     text = path.read_text()
+    include = '#include "conv_core.cuh"'
+    if include in text:  # inline the core, so its constants can change
+        core = (path.parent / "conv_core.cuh").read_text().replace("#pragma once", "")
+        text = text.replace(include, core)
     for name, value in consts.items():
         text, n = re.subn(
             rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};", text)
@@ -76,8 +97,11 @@ def build_all(jobs: dict) -> dict:
     libs = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
-        if proc.returncode != 0:
+        if proc.returncode != 0 and name.endswith("_default"):
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        if proc.returncode != 0:  # a variant that does not build is reported
+            print(f"[build] {name}: nvcc failed, left out:\n{log[-3000:]}", flush=True)
+            continue
         used = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: " + " | ".join(used), flush=True)
         libs[name] = ctypes.CDLL(str(so))
@@ -85,10 +109,13 @@ def build_all(jobs: dict) -> dict:
 
 
 def bind(lib, entry: str, args=None):
+    """lib's entry with the signature of kernels._SIGNATURES, or with
+    `args` (an entry of an earlier source) and an int result."""
     fn = getattr(lib, entry)
-    fn.argtypes, fn.restype = kernels._SIGNATURES[entry]
-    if args is not None:
-        fn.argtypes = args
+    if args is None:
+        fn.argtypes, fn.restype = kernels._SIGNATURES[entry]
+    else:
+        fn.argtypes, fn.restype = args, ctypes.c_int
     return fn
 
 
@@ -226,10 +253,168 @@ def run_transpose(torch, cuda_ms, device_ms, libs: dict, old_entry: set) -> dict
     return times
 
 
+def conv_shapes(torch) -> list:
+    """The (features, filters) of each conv call of one person26 VGA
+    detect (buckets_per_octave=2, seed-0 frame), captured on the card."""
+    from .. import PartsBasedDetector, make_person_like_model
+    from .. import pipeline
+
+    calls = []
+    orig = pipeline.filter_responses_grouped
+
+    def record(feats, filt, bank=None):
+        calls.extend((x.clone(), filt) for x in feats)
+        return orig(feats, filt, bank)
+
+    im = torch.randint(0, 256, (480, 640, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(0)).numpy()
+    det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2)
+    pipeline.filter_responses_grouped = record
+    try:
+        det.detect(im)
+    finally:
+        pipeline.filter_responses_grouped = orig
+    return calls
+
+
+def run_conv(torch, cuda_ms, device_ms, libs: dict, proto_lib, baseline: set) -> dict:
+    """Every K2 source at the table shape and over one detect's buckets,
+    and T1 at toh 1, 2, 4, 8 on the table shape's features; each held to
+    1e-5 * sum|x*w| of filter_responses first."""
+    from ..ops.conv import filter_responses
+    from ..ops.conv_cuda import split_bank
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(0)
+    feat = torch.rand((5, 130, 170, 32), generator=gen).cuda()
+    filt = (0.1 * torch.randn((104, 5, 5, 32), generator=gen)).cuda()
+    # all terms positive: partial sums as large as sum|x*w|, where a
+    # truncating accumulation errs most
+    positive = [(feat, filt.abs())]
+    cases = [("table", [(feat, filt)]), ("detect", conv_shapes(torch))]
+
+    def launcher(name, lib, pairs):
+        """() -> launch every pair once; outs[i] holds pair i's result."""
+        outs, args = [], []
+        for x, w in pairs:
+            s, h, wd, c = x.shape
+            f, fh, fw, _ = w.shape
+            if name in baseline:  # the FP32 kernel: K-major weights, F padded to 64
+                fp = -(-f // 64) * 64
+                wk = torch.zeros((fh * fw * c, fp), device="cuda")
+                wk[:, :f] = w.permute(1, 2, 3, 0).reshape(-1, f)
+                out = torch.empty((s, h - fh + 1, wd - fw + 1, fp), device="cuda")
+                fn = bind(lib, "pbd_conv_fp32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p])
+                args.append((fn, (x.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                                  s, h, wd, c, fh, fw, fp), wk))
+                outs.append(out[..., :f])
+            else:  # the grouped entry with one stack
+                out = torch.empty((s, h - fh + 1, wd - fw + 1, f), device="cuda")
+                fn = bind(lib, "pbd_conv_3xtf32_grouped")
+                bank = split_bank(w)
+                one = lambda *v: (ctypes.c_int * 1)(*v)
+                ptrs = [(ctypes.c_void_p * 1)(t.data_ptr()) for t in (x, out)]
+                args.append((fn, (*ptrs, one(s), one(h), one(wd), 1, bank.data_ptr(),
+                                  c, f, fh, fw), bank))
+                outs.append(out)
+
+        def run():
+            for fn, a, _ in args:
+                kernels.check(fn(*a, stream()), f"conv {name} launch")
+        return run, outs
+
+    times, worst = {}, {}
+    for name, lib in libs.items():  # the rule on positive terms, reported
+        run, outs = launcher(name, lib, positive)
+        run()
+        want = filter_responses(*positive[0])
+        ratio = ((outs[0] - want).abs() / (1e-5 * want)).max().item()
+        worst[name] = ratio
+        print(f"[conv] {name} positive terms: worst |err| / 1e-5*sum|x*w| = {ratio:.3g}",
+              flush=True)
+    for case, pairs in cases:
+        wants = [filter_responses(x, w) for x, w in pairs]
+        scales = [filter_responses(x.abs(), w.abs()) for x, w in pairs]
+        runs = {}
+        for name, lib in libs.items():
+            run, outs = launcher(name, lib, pairs)
+            run()
+            torch.cuda.synchronize()
+            bad = [((o - want).abs() / (1e-5 * sc)).max().item()
+                   for o, want, sc in zip(outs, wants, scales)
+                   if not bool(((o - want).abs() <= 1e-5 * sc).all())]
+            if bad:  # reported and left untimed
+                print(f"[conv] {name} ({case}) exceeds 1e-5*sum|x*w| (x{max(bad):.3g}): "
+                      "not timed", flush=True)
+                continue
+            runs[name] = run
+        if case == "detect":
+            # every bucket in one launch (the pipeline's) against one
+            # launch per bucket (the default's entry in turns above)
+            lib = libs["conv_default"]
+            fn = bind(lib, "pbd_conv_3xtf32_grouped")
+            n = len(pairs)
+            w = split_bank(pairs[0][1])
+            f, fh, fw, c = pairs[0][1].shape
+            outs = [torch.empty((x.shape[0], x.shape[1] - fh + 1, x.shape[2] - fw + 1, f),
+                                device="cuda") for x, _ in pairs]
+            arr = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+            dims = [(ctypes.c_int * n)(*(x.shape[k] for x, _ in pairs)) for k in range(3)]
+            xs, os_ = arr([x for x, _ in pairs]), arr(outs)
+            run = lambda: kernels.check(fn(xs, os_, *dims, n, w.data_ptr(), c, f, fh, fw,
+                                           stream()), "grouped conv launch")
+            run()
+            torch.cuda.synchronize()
+            ref_run, ref_outs = launcher("conv_default", lib, pairs)
+            ref_run()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs, ref_outs)):
+                raise AssertionError("grouped conv differs from one launch per bucket")
+            runs["conv_default_grouped"] = run
+        if case == "table":
+            x, w = pairs[0]
+            xt = x.permute(0, 1, 3, 2).contiguous()
+            f = w.shape[0]
+            w2 = torch.zeros((800, 128), device="cuda")
+            w2[:, :f] = w.permute(1, 2, 3, 0).reshape(-1, f)
+            w2 = split_bank(w2)
+            run_k2, (k2,) = launcher("conv_default", libs["conv_default"], pairs)
+            run_k2()
+            fn = bind(proto_lib, "pbd_conv_proto_3xtf32")
+            for toh in (1, 2, 4, 8):
+                out = torch.empty_like(k2)
+                run = (lambda out=out, toh=toh: kernels.check(fn(
+                    xt.data_ptr(), w2.data_ptr(), out.data_ptr(), 5, 130, 32, 170,
+                    5, 5, f, 128, toh, stream()), "conv_proto launch"))
+                run()
+                torch.cuda.synchronize()
+                if not torch.equal(out, k2):
+                    raise AssertionError(f"T1 toh {toh} differs from K2")
+                runs[f"conv_proto_toh{toh}"] = run
+        samples = {}
+        for turn in range(3):
+            for name, run in runs.items():
+                got = samples.setdefault(f"{name}/{case}", {"device_ms": [], "event_ms": []})
+                got["device_ms"].append(device_ms(run, reps=20))
+                got["event_ms"].append(cuda_ms(run, reps=20))
+        times.update({key: {k: statistics.median(v) for k, v in got.items()}
+                      for key, got in samples.items()})
+    for key, t in times.items():
+        print(f"[conv] {key} device_ms={t['device_ms']:.4f} "
+              f"event_ms={t['event_ms']:.4f}", flush=True)
+    times["worst_ratio_positive"] = worst
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-dir", type=Path, default=None,
-                    help="a directory with an earlier dt1d.cu and transpose.cu")
+                    help="a directory with an earlier dt1d.cu, transpose.cu and conv.cu")
+    ap.add_argument("--only", choices=("dt1d", "transpose", "conv"), default=None,
+                    help="time one kernel family only")
+    ap.add_argument("--conv-variants", default=",".join(CONV_VARIANTS),
+                    help="comma-separated conv variants to build (default: all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -241,22 +426,37 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    jobs = {f"dt1d_{k}": variant_source(kernels.CSRC / "dt1d.cu", v)
-            for k, v in DT_VARIANTS.items()}
-    jobs["transpose_default"] = (kernels.CSRC / "transpose.cu").read_text()
+    want = lambda stem: args.only in (None, stem)
+    jobs = {}
+    if want("dt1d"):
+        jobs.update({f"dt1d_{k}": variant_source(kernels.CSRC / "dt1d.cu", v)
+                     for k, v in DT_VARIANTS.items()})
+    if want("transpose"):
+        jobs["transpose_default"] = (kernels.CSRC / "transpose.cu").read_text()
+    if want("conv"):
+        names = {"default", *args.conv_variants.split(",")}
+        jobs.update({f"conv_{k}": variant_source(kernels.CSRC / "conv.cu", CONV_VARIANTS[k])
+                     for k in CONV_VARIANTS if k in names})
+        jobs["proto_default"] = variant_source(kernels.CSRC / "conv_proto.cu", {})
     old = set()
     if args.baseline_dir is not None:
-        for stem in ("dt1d", "transpose"):
+        for stem in ("dt1d", "transpose", "conv"):
             path = args.baseline_dir / f"{stem}.cu"
-            if path.exists():
+            if want(stem) and path.exists():
                 jobs[f"{stem}_baseline"] = path.read_text()
                 old.add(f"{stem}_baseline")
     libs = build_all(jobs)
     result = {"card": card}
     pick = lambda stem: {k: v for k, v in libs.items() if k.startswith(stem + "_")}
-    result["dt1d"] = run_dt(torch, cuda_ms, pick("dt1d"))
-    result["transpose"] = run_transpose(
-        torch, cuda_ms, device_ms, pick("transpose"), old)
+    if want("dt1d"):
+        result["dt1d"] = run_dt(torch, cuda_ms, pick("dt1d"))
+    if want("transpose"):
+        result["transpose"] = run_transpose(
+            torch, cuda_ms, device_ms, pick("transpose"), old)
+    if want("conv"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        result["conv"] = run_conv(torch, cuda_ms, device_ms, pick("conv"),
+                                  libs["proto_default"], old)
     print(card)
     print(json.dumps(result))
     return 0

@@ -5,14 +5,16 @@ kernels): without one it skips. On the card, run
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 The kernels are held to: the DT bit for bit (values, and pointers at
-live outputs); the conv within 1e-5 * sum|x*w|; the DT's backward (K4)
+live outputs); the conv (3xTF32) within 1e-5 * sum|x*w|, and its grouped
+launch equal to single launches bit for bit; the DT's backward (K4)
 within 1e-5 * sum|g| per source and 1e-5 * sum|g*d^2|, sum|g*d| per map;
 the adaptive-window DT (K5) bit for bit against its plain version, and
 against K1 inside out_valid. Detect with the window DT gives the default
 detect's candidates bit for bit; the Fourier and RGB-D detectors give the
 CPU path's candidates. The transpose (T2) is exact for float32 and int32,
 single and as a pair, and so is its gradient; the serving APIs give
-detect's candidates. T1's
+detect's candidates, and the pyramid's features are the same bits alone,
+in a batch of 8 and on the CPU. T1's
 port (conv_proto) is within 1e-5 * sum|x*w| of its plain version and
 equal to K2 bit for bit at every toh; the hybrid bf16 profile gives the
 CPU path's candidates through K1, K2 and T2.
@@ -132,10 +134,13 @@ def test_dt_kernel_constants_and_refusals(cuda):
         dt_cuda.dt1d(src, zeros - 1, zeros, zeros, 2)
 
 
-# (12, 12) filters need more than 48 KB of shared memory per block
+# (12, 12) filters need more than 48 KB of shared memory per block; F =
+# 130 takes two blocks along N; (5, 130, 170) x 104 is the person26 VGA
+# table shape; C = 12 is no multiple of 8 (zero channels in the k8 steps)
 @pytest.mark.parametrize(
     "s,h,w,c,f,fh,fw",
-    [(3, 40, 53, 32, 70, 5, 4), (1, 30, 31, 32, 3, 12, 12), (2, 9, 20, 8, 130, 2, 3)],
+    [(3, 40, 53, 32, 70, 5, 4), (1, 30, 31, 32, 3, 12, 12), (2, 9, 20, 8, 130, 2, 3),
+     (5, 130, 170, 32, 104, 5, 5), (2, 17, 19, 12, 9, 3, 3)],
 )
 def test_conv_kernel_matches_plain(cuda, s, h, w, c, f, fh, fw):
     from partsbaseddetector_tpu_torch.ops import conv, conv_cuda
@@ -150,6 +155,49 @@ def test_conv_kernel_matches_plain(cuda, s, h, w, c, f, fh, fw):
     bound = 1e-5 * conv.filter_responses(feat.abs(), filt.abs())
     assert got.shape == want.shape
     assert bool(((got - want).abs() <= bound).all())
+
+
+def test_grouped_conv_equals_one_launch_per_stack(cuda):
+    """A detect's buckets in one grouped launch: each output equals its
+    own launch bit for bit, more than 16 stacks take more launches."""
+    from partsbaseddetector_tpu_torch.ops import conv_cuda
+
+    gen = torch.Generator().manual_seed(11)
+    filt = (0.1 * torch.randn((104, 5, 5, 32), generator=gen)).to(cuda)
+    shapes = [(10, 130, 170), (10, 70, 90), (5, 40, 53), (1, 12, 13)] * 5
+    feats = [torch.rand((s, h, w, 32), generator=gen).to(cuda) for s, h, w in shapes]
+    before = conv_cuda.launches
+    got = conv_cuda.filter_responses_grouped(feats, filt)
+    assert conv_cuda.launches == before + 2  # 20 stacks: 16 + 4
+    for g, x in zip(got, feats):
+        assert torch.equal(g, conv_cuda.filter_responses_infer(x, filt))
+
+
+def test_detect_passes_the_bank_split_once_per_model(cuda, monkeypatch):
+    """to_device splits the filter bank into its TF32 pieces once; a
+    detect's one grouped conv call stages that split; a bank of another
+    shape is refused."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model
+    from partsbaseddetector_tpu_torch import pipeline
+    from partsbaseddetector_tpu_torch.ops import conv_cuda
+
+    det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2, device=cuda)
+    im = np.random.RandomState(0).randint(0, 256, (120, 160, 3)).astype(np.uint8)
+    dm = det._dmodel
+    assert torch.equal(dm.filters_split, conv_cuda.split_bank(dm.filters))
+    seen = []
+    orig = pipeline.filter_responses_grouped
+
+    def record(feats, filt, bank=None):
+        seen.append(bank)
+        return orig(feats, filt, bank)
+
+    monkeypatch.setattr(pipeline, "filter_responses_grouped", record)
+    det.detect(im)
+    assert len(seen) == 1 and seen[0] is dm.filters_split
+    feat = torch.rand((1, 12, 12, 32), device=cuda)
+    with pytest.raises(ValueError, match="split bank"):
+        conv_cuda.filter_responses_grouped([feat], dm.filters, dm.filters_split[:, :3])
 
 
 def test_golden_fixture_on_cuda(cuda):
@@ -443,24 +491,79 @@ def test_serving_apis_on_cuda_match_detect(cuda):
         _same_candidates(g, s, 1e-5 * max(1.0, abs(s[0].score)), 1e-4)
 
 
-@pytest.mark.xfail(strict=True, reason="open fault (ROADMAP.md, faults found in "
-                   "the port): detect_many(microbatch=8) shifts frame 1's scores "
-                   "by 0.03996 on this frame; remove the mark with the repair")
-def test_microbatch8_matches_detect_on_the_seed0_vga_frame(cuda):
-    """person26 at 480x640 on the first draw of a seed-0 generator, frames
-    clip(im + i): every frame of the microbatch-8 program has detect's
-    candidates within the serving tolerance."""
-    from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model
-
+def _seed0_frames():
+    """The first draw of a seed-0 generator at 480x640, frames clip(im + i)."""
     im = torch.randint(0, 256, (480, 640, 3), dtype=torch.uint8,
                        generator=torch.Generator().manual_seed(0)).numpy()
-    frames = [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
-              for i in range(8)]
+    return [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+            for i in range(8)]
+
+
+def test_microbatch8_matches_detect_on_the_seed0_vga_frame(cuda):
+    """person26 at 480x640 on the seed-0 frames: every frame of the
+    microbatch-8 program has detect's candidates within the serving
+    tolerance (frame 1 lost 0.03996 before the pyramid's sums were made
+    independent of the batch)."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model
+
+    frames = _seed0_frames()
     det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2,
                              device=cuda)
     singles = [det.detect(f) for f in frames]
     for g, s in zip(det.detect_many(frames, microbatch=8), singles):
         _same_candidates(g, s, 1e-5 * max(1.0, abs(s[0].score)), 1e-4)
+
+
+def _person26_plan(imsize):
+    from partsbaseddetector_tpu_torch import make_person_like_model
+    from partsbaseddetector_tpu_torch.models.model import pack_model
+    from partsbaseddetector_tpu_torch.ops import pyramid
+
+    packed = pack_model(make_person_like_model())
+    fh, fw = packed.filters.shape[1:3]
+    return packed.spec, pyramid.build_plan(imsize, packed.spec, fh, fw,
+                                           buckets_per_octave=2)
+
+
+def test_pyramid_features_batch_invariant_on_cuda(cuda):
+    """The seed-0 VGA frames 0-7: every bucket's features of each frame
+    are the same bits alone (B = 1) as inside the batch of 8."""
+    from partsbaseddetector_tpu_torch.ops import pyramid
+
+    frames = _seed0_frames()
+    spec, plan = _person26_plan(frames[0].shape[:2])
+    batch = torch.as_tensor(np.stack(frames), device=cuda).float()
+    together = pyramid.build_pyramid_features(batch, plan, spec)
+    for i in range(8):
+        alone = pyramid.build_pyramid_features(batch[i : i + 1], plan, spec)
+        for b, (x, y) in enumerate(zip(alone, together)):
+            assert torch.equal(x[0], y[i]), f"frame {i}, bucket {b}"
+
+
+def test_pyramid_resized_images_and_hog_choices_equal_cpu(cuda):
+    """Seed-0 frame 1: every scale's resized image, its HOG colour and
+    orientation choices and every bucket's features are the CPU's bits;
+    and detect on the card gives the CPU path's candidates."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model
+    from partsbaseddetector_tpu_torch.ops import hog, pyramid
+
+    frame = _seed0_frames()[1]
+    spec, plan = _person26_plan(frame.shape[:2])
+    host = torch.as_tensor(frame[None]).float()
+    card = pyramid._scale_images(host.to(cuda), plan, spec)
+    cpu = pyramid._scale_images(host, plan, spec)
+    for s, (x, y) in enumerate(zip(card, cpu)):
+        assert torch.equal(x.cpu(), y), f"scale {s}: resized image"
+        for got, want in zip(hog.hog_choices(x, spec.sbin)[:2],
+                             hog.hog_choices(y, spec.sbin)[:2]):
+            assert torch.equal(got.cpu(), want), f"scale {s}: HOG choices"
+    for b, (x, y) in enumerate(zip(pyramid.build_pyramid_features(host.to(cuda), plan, spec),
+                                   pyramid.build_pyramid_features(host, plan, spec))):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-6, atol=1e-6, msg=f"bucket {b}")
+    model = make_person_like_model()
+    got = PartsBasedDetector(model, buckets_per_octave=2, device=cuda).detect(frame)
+    want = PartsBasedDetector(model, buckets_per_octave=2, device="cpu").detect(frame)
+    _same_candidates(got, want, 1e-4, 1e-3)
 
 
 @pytest.mark.parametrize(
