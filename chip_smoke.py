@@ -43,11 +43,16 @@ script exits non-zero without the final line):
                  transposed copy, a contiguous copy of the same bytes
                  and the bound; a pair launch beside two single launches
                  and two torch calls; one detect's transposes summed
-  8. dt1d_bwd    the DT's backward kernel (K4) against dt1d_bwd_plain on
-                 the card: g_src within 1e-5 * sum|g| per source, g_a and
-                 g_b within 1e-5 * sum|g*d^2| and sum|g*d| per map (y pass,
-                 x pass with aux, step 2, integer ties, dead outputs, the
-                 person26 240x320 finest-bucket shapes)
+  8. dt1d_bwd    the DT's backward kernel (K4) on the card: bit for bit
+                 against dt1d_bwd_order_plain (its own order of the sums),
+                 the same bits on two runs, and against dt1d_bwd_plain
+                 with g_src within 1e-5 * sum|g| per source, g_a and g_b
+                 within 1e-5 * sum|g*d^2| and sum|g*d| per map (y pass,
+                 x pass with aux, step 2, integer ties, dead outputs,
+                 fewer rows than warps, more strips than warps, a map
+                 too tall for a shared-memory slab, the person26 240x320
+                 finest-bucket shapes);
+                 event and device ms of that pair
   9. train       the SGD training step (train/sgd.py::make_train_step) on
                  person26, batch 8 at 240x320, latent positives: both DT
                  kernels launched, finite loss and pools at every step,
@@ -55,13 +60,17 @@ script exits non-zero without the final line):
                  equal to the CPU path's within rtol 1e-4, atol 1e-5, the
                  median ms/step over 5 steps after a warm-up and images/s,
                  then a torch.profiler pass over one step
- 10. dt1d_window the adaptive-window DT (K5) against dt1d_window_plain on
-                 the card, bit for bit, and against K1 inside out_valid,
-                 (-inf, 0) beyond (y pass, x pass with aux, per-column
-                 out_valid with 0 and dlen, all-dead maps, integer ties
-                 with and without aux, a == 0 with b == 0 and b != 0, the
-                 person26 VGA finest-bucket shapes with the plan's
-                 out_valid); ms of K5, K1 and the plain version there
+ 10. dt1d_window the adaptive-window DT (K5, K1's core in its window
+                 form) against dt1d_window_plain on the card, bit for bit,
+                 and against K1 inside out_valid, (-inf, 0) beyond (y
+                 pass, x pass with aux, per-column out_valid with 0 and
+                 dlen, out_valid all 0 and all dlen, a map streamed
+                 through the tile, an integral shift beyond 2^22,
+                 all-dead maps, integer ties with and without aux, a == 0
+                 with b == 0 and b != 0, the person26 VGA finest-bucket
+                 shapes with the plan's out_valid); event ms of K5, K1 and
+                 the plain version there, device ms (profiler) and event
+                 ms of the bare launches of K5 and K1
  11. window_detect  person26 at 480x640 with PBD_DT_WINDOW=1: K5 launched,
                  the DT passes that took K5 and K1, candidates bit-identical
                  to the default detect, ms/image medians of both measured
@@ -536,7 +545,8 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
 
 
 # kernel families of a profile, by a piece of the kernel's name (first
-# match wins: the window and backward DT names contain the forward's)
+# match wins: K5 is the DT core's kernel with the tag dt1d_window, K1 the
+# same kernel with dt1d_exact; the backward's name contains the forward's)
 FAMILIES = (("dt1d_window", "dt1d_window"), ("dt1d_bwd", "dt1d_axis2_bwd"),
             ("dt1d", "dt1d_axis2"), ("conv", "conv3xtf32"),
             ("transpose", "transpose32"), ("fft", "fft"))
@@ -594,12 +604,15 @@ def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
     return got["families"]
 
 
-def check_dt_bwd(torch, dt_cuda, gen) -> dict:
-    """K4's backward kernel against dt1d_bwd_plain on the same forward
-    outputs; returns its timing at the person26 240x320 finest bucket
-    (G=8 parts x S=10 scales x M=4 mixtures of 66x86 maps)."""
+def check_dt_bwd(torch, dt_cuda, kernels, gen) -> dict:
+    """K4's backward kernel against dt1d_bwd_order_plain (its own order
+    of the sums) bit for bit, the same bits on a second run, and within
+    the magnitude rule of dt1d_bwd_plain, on the same forward outputs;
+    returns its timing at the person26 240x320 finest bucket (G=8 parts
+    x S=10 scales x M=4 mixtures of 66x86 maps)."""
     dev = DEVICE
     errs = []
+    lib = kernels.library()
 
     def case(name, bsz, h, w, dlen, step=1, aux=False, ints=False, dead=False):
         if ints:
@@ -627,29 +640,45 @@ def check_dt_bwd(torch, dt_cuda, gen) -> dict:
             raise AssertionError(f"dt1d_bwd {name}: dead outputs not as set up")
         args = (g, out, ptr, shift, h, step, aux)
         got = dt_cuda.dt1d_bwd(*args)
+        again = dt_cuda.dt1d_bwd(*args)
+        layout = (lib.pbd_dt1d_bwd_strips(h, w, dlen), lib.pbd_dt1d_bwd_segments(h, w, dlen))
+        exact = dt_cuda.dt1d_bwd_order_plain(*args, max(1, layout[0]), layout[1])
         want = dt_cuda.dt1d_bwd_plain(*args)
         bounds = [DT_BWD_RTOL * m for m in dt_cuda.dt1d_bwd_magnitudes(*args)]
         torch.cuda.synchronize()
-        for what, x, y, bound in zip(("g_src", "g_a", "g_b"), got, want, bounds):
+        for what, x, y, z, e, bound in zip(("g_src", "g_a", "g_b"), got, want, again,
+                                           exact, bounds):
             if x.shape != y.shape:
                 raise AssertionError(f"dt1d_bwd {name}: {what} shape {tuple(x.shape)}")
+            if not torch.equal(x, e):
+                raise AssertionError(
+                    f"dt1d_bwd {name}: {what} differs from dt1d_bwd_order_plain "
+                    f"(strips, segments {layout})")
+            if not torch.equal(x, z):
+                raise AssertionError(f"dt1d_bwd {name}: {what} differs between two runs")
             err = (x - y).abs()
             if not bool((err <= bound).all()):
                 ratio = (err / bound.clamp_min(1e-30)).max().item()
                 raise AssertionError(
                     f"dt1d_bwd {name}: {what} exceeds its bound (x{ratio:.3g})")
             errs.append(err.max().item())
-        return args
+        return args, layout
 
     case("ypass", 7, 40, 50, 37)
     case("xpass_aux", 7, 50, 40, 45, aux=True)
     case("step2", 5, 36, 20, 15, step=2)
     case("ties_aux", 6, 24, 40, 24, aux=True, ints=True)
     case("dead", 6, 30, 33, 30, aux=True, dead=True)
-    yargs = case("p26_240x320_y", 8 * 10 * 4, 66, 86, 66)
-    xargs = case("p26_240x320_x_aux", 8 * 10 * 4, 86, 66, 86, aux=True)
-    ms = cuda_ms(lambda: dt_cuda.dt1d_bwd(*yargs), reps=20)
-    ms += cuda_ms(lambda: dt_cuda.dt1d_bwd(*xargs), reps=20)
+    case("fewer_rows_than_warps", 5, 9, 70, 5)
+    case("more_strips_than_warps", 4, 20, 300, 17, aux=True)
+    _, tall = case("too_tall_for_a_slab", 2, 1900, 40, 60, aux=True)
+    if tall[0] != 0:
+        raise AssertionError("dt1d_bwd: the tall map did not take the global-memory path")
+    yargs, ylay = case("p26_240x320_y", 8 * 10 * 4, 66, 86, 66)
+    xargs, xlay = case("p26_240x320_x_aux", 8 * 10 * 4, 86, 66, 86, aux=True)
+    pair = lambda: (dt_cuda.dt1d_bwd(*yargs), dt_cuda.dt1d_bwd(*xargs))
+    ms = cuda_ms(pair, reps=20)
+    dev_ms = statistics.median(device_ms(pair, reps=20) for _ in range(3))
     plain = cuda_ms(lambda: dt_cuda.dt1d_bwd_plain(*yargs), reps=20)
     plain += cuda_ms(lambda: dt_cuda.dt1d_bwd_plain(*xargs), reps=20)
     # per output: d, g*d, g*d*d and three sums, ~6 FP32 operations; g,
@@ -659,13 +688,14 @@ def check_dt_bwd(torch, dt_cuda, gen) -> dict:
         moved += 3 * nbytes(g) + 3 * nbytes(shift) + nbytes(g) // g.shape[1] * h
         ops += 6.0 * g.numel()
     bnd = bound(moved, ops)
-    log("dt1d_bwd", cases=7, max_abs_err=f"{max(errs):.3e}",
+    log("dt1d_bwd", cases=10, max_abs_err=f"{max(errs):.3e}", exact_order=True,
+        deterministic=True, strips_segments=f"y{ylay},x{xlay},tall{tall}".replace(" ", ""),
         bound="1e-5*sum|g| per source, 1e-5*sum|g*d^2|,sum|g*d| per map",
         shape="y(320,66,86)+x_aux(320,86,66)", ms=f"{ms:.4f}",
-        plain_ms=f"{plain:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
-        bound_by=bnd["bound_by"], library_ms=None)
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain, **bnd,
-            "library_ms": None}
+        device_ms=f"{dev_ms:.4f}", plain_ms=f"{plain:.4f}",
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"], library_ms=None)
+    return {"max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            **bnd, "library_ms": None}
 
 
 def train_setup(np, torch, pbd_train, packed, imsize, batch, seed):
@@ -799,44 +829,13 @@ def window_dt(on: bool):
             os.environ["PBD_DT_WINDOW"] = old
 
 
-def capture_window_passes(det, im, dtm):
-    """One person26 detect with the window DT, recording the arguments
-    of every K5 call (ops/distance_transform.py calls dt1d_window once
-    for the y pass and once for the x pass of each group); returns the
-    (y, x) pair of the group with the largest maps."""
-    calls = []
-    orig = dtm.dt1d_window
-
-    def record(src, a, b, shift, dlen, out_valid, nvalid=None, aux=None):
-        calls.append((src, a, b, shift, nvalid, out_valid, dlen, aux))
-        return orig(src, a, b, shift, dlen, out_valid, nvalid=nvalid, aux=aux)
-
-    dtm.dt1d_window = record
-    try:
-        with window_dt(True):
-            det.detect(im)
-    finally:
-        dtm.dt1d_window = orig
-    k = max(range(0, len(calls), 2), key=lambda j: calls[j][0].numel())
-    return calls[k], calls[k + 1]
-
-
-def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
+def check_dt_window(torch, dt_cuda, variants, gen, det, im) -> dict:
     """K5 against dt1d_window_plain (bit for bit, don't-care outputs
     included) and against K1 inside out_valid; returns its timing beside
     K1's and the plain version's at the person26 VGA finest bucket, on
-    the DT inputs and consumer extents a real detect gives it."""
+    the DT inputs and consumer extents a real detect gives it
+    (tools/kernel_variants.py::window_passes)."""
     dev = DEVICE
-
-    def flat(src, a, b, shift, nvalid, out_valid, dlen, aux):
-        cols = (*src.shape[:-2], src.shape[-1])
-        src, a, b, shift, nvalid, aux = dt_cuda.flatten_maps(
-            src, a, b, shift, nvalid, aux)
-        ov = torch.as_tensor(out_valid, dtype=torch.int32, device=dev)
-        ov = ov.broadcast_to(cols).reshape(src.shape[0], cols[-1])
-        ov = ov.clamp(0, dlen).contiguous()
-        return (src.contiguous(), a, b, shift, nvalid, ov, dlen,
-                None if aux is None else aux.contiguous())
 
     def run(name, src, a, b, shift, nvalid, ov, dlen, aux=None):
         got = dt_cuda.dt1d_window(src, a, b, shift, dlen, ov, nvalid=nvalid, aux=aux)
@@ -854,7 +853,8 @@ def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
             raise AssertionError(f"dt1d_window {name}: don't-care outputs not (-inf, 0)")
         return int(inside.sum()), int((~inside).sum())
 
-    def case(name, bsz, h, w, dlen, aux=False, ints=False, dead=False, ab=None):
+    def case(name, bsz, h, w, dlen, aux=False, ints=False, dead=False, ab=None,
+             ov_fill=None, big_shift=False):
         if ints:
             src = torch.randint(-4, 5, (bsz, h, w), generator=gen).float()
             a = -torch.randint(1, 3, (bsz,), generator=gen).float()
@@ -872,8 +872,12 @@ def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
         src = torch.where(torch.arange(h)[None, :, None] < nvalid[:, None, None],
                           src, -torch.inf)
         shift = torch.randint(-3, 4, (bsz,), generator=gen).float()
+        if big_shift:  # integral, beyond 2^22: K1's general path
+            shift += float(2**22 + 5)
         ov = torch.randint(0, dlen + 1, (bsz, w), generator=gen, dtype=torch.int32)
         ov[:, 0], ov[:, 1] = 0, dlen  # per-column extents include 0 and dlen
+        if ov_fill is not None:
+            ov.fill_(ov_fill)
         ax = torch.randint(0, 4096, (bsz, h, w), generator=gen,
                            dtype=torch.int32) if aux else None
         args = [t.to(dev) for t in (src, a, b, shift, nvalid, ov)]
@@ -881,6 +885,10 @@ def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
 
     cases = [
         case("ypass", 6, 40, 50, 37),
+        case("out_valid_all_zero", 6, 40, 50, 37, ov_fill=0),
+        case("out_valid_all_dlen", 6, 40, 50, 37, aux=True, ov_fill=37),
+        case("streamed_tall_map", 2, 1100, 40, 70, aux=True),
+        case("shift_beyond_2_22", 5, 40, 33, 37, aux=True, big_shift=True),
         case("xpass_aux", 6, 50, 40, 45, aux=True),
         case("dead", 6, 30, 33, 30, aux=True, dead=True),
         case("ties", 8, 24, 40, 24, ints=True),
@@ -888,8 +896,7 @@ def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
         case("a0_b0", 6, 30, 33, 30, ab=(0.0, 0.0)),
         case("a0_b_nonzero", 6, 30, 33, 30, aux=True, ab=(0.0, 0.5)),
     ]
-    ypass, xpass = capture_window_passes(det, im, dtm)
-    yargs, xargs = flat(*ypass), flat(*xpass)
+    yargs, xargs = variants.window_passes(torch, det, im)
     cases.append(run("p26_y", *yargs))
     cases.append(run("p26_x_aux", *xargs))
 
@@ -906,29 +913,58 @@ def check_dt_window(torch, dt_cuda, dtm, gen, det, im) -> dict:
         dt_cuda.dt1d_window_plain(*yargs)
         dt_cuda.dt1d_window_plain(*xargs)
 
-    # in turns, as the kernels and the plain version share the card
-    ms, k1_ms, plain_ms = [], [], []
-    for _ in range(2):
+    # the kernels alone, without the wrappers' own tensor code (whose
+    # device ops the profiler would add): the launches on flat arguments
+    k5_alone = lambda: [dt_cuda._dt1d_window_cuda(*p) for p in (yargs, xargs)]
+    k1_alone = lambda: [dt_cuda._dt1d_cuda(*p[:5], p[6], 1, p[7]) for p in (yargs, xargs)]
+    def profiled(run):
+        """The profiler's device ms of run() (two bare launches), from a
+        pass that recorded both kernels of every call, or None: late in
+        this process the profiler has lost kernel events (PERF.md)."""
+        for _ in range(3):
+            got = profile_device(torch, lambda: [run() for _ in range(10)], 10)
+            if got["ops"] == 2:
+                return got["busy"]
+        return None
+
+    # in turns, as the kernels and the plain version share the card;
+    # device time (profiler) beside the wrappers' event time, and events
+    # around the bare launches (each takes tens of us, more than the host
+    # needs to launch it)
+    ms, k1_ms, plain_ms, dev_ms, k1_dev, bare, k1_bare = ([] for _ in range(7))
+    for _ in range(3):
         ms.append(cuda_ms(k5, reps=10))
         k1_ms.append(cuda_ms(k1, reps=10))
+        dev_ms.append(profiled(k5_alone))
+        k1_dev.append(profiled(k1_alone))
+        bare.append(cuda_ms(k5_alone, reps=10))
+        k1_bare.append(cuda_ms(k1_alone, reps=10))
         plain_ms.append(cuda_ms(plain, reps=3))
     shape = (f"y{tuple(yargs[0].shape)}+x_aux{tuple(xargs[0].shape)}")
     ms, k1_ms, plain_ms = min(ms), min(k1_ms), min(plain_ms)
+    complete = lambda t: statistics.median(x for x in t if x is not None) if any(
+        x is not None for x in t) else None
+    dev_ms, k1_dev = complete(dev_ms), complete(k1_dev)
+    bare, k1_bare = statistics.median(bare), statistics.median(k1_bare)
+    fmt = lambda x: "lost" if x is None else f"{x:.4f}"
     inside = sum(c[0] for c in cases[-2:])
     dont = sum(c[1] for c in cases[-2:])
-    # the early exit makes the scan data-dependent and unobservable from
-    # here: count the least work, each exact output evaluating at least
-    # one source (~5 operations); inputs read, outputs written once
+    # the chunk prune makes the scan data-dependent: count the least
+    # work, each exact output evaluating at least one source (~5
+    # operations); inputs read, outputs written once
     moved = sum(nbytes(a[0], a[5], a[7]) + 16 * a[0].shape[0]
                 + 8 * a[0].shape[0] * a[6] * a[0].shape[2] for a in (yargs, xargs))
     bnd = bound(moved, 5.0 * inside)
     log("dt1d_window", cases=len(cases), exact=True, max_abs_err=0.0,
         shape=shape, p26_outputs_exact=inside, p26_outputs_dont_care=dont,
-        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", device_ms=fmt(dev_ms),
+        k1_device_ms=fmt(k1_dev), bare_launch_ms=f"{bare:.4f}",
+        k1_bare_launch_ms=f"{k1_bare:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
         library_ms=None)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
-            **bnd, "library_ms": None}
+            "device_ms": dev_ms, "k1_device_ms": k1_dev, "bare_launch_ms": bare,
+            "k1_bare_launch_ms": k1_bare, **bnd, "library_ms": None}
 
 
 def timed_detect(torch, det, im, depth=None) -> float:
@@ -1724,6 +1760,7 @@ def main() -> int:
         from partsbaseddetector_tpu_torch.ops import conv, conv_cuda, dt_cuda, nms
         from partsbaseddetector_tpu_torch.ops import conv_proto_cuda as cp
         from partsbaseddetector_tpu_torch.tools import conv_proto as harness
+        from partsbaseddetector_tpu_torch.tools import kernel_variants as variants
         from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
         from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
         from partsbaseddetector_tpu_torch.utils.profiling import cuda_ms, device_ms
@@ -1763,9 +1800,9 @@ def main() -> int:
                                  families["conv"], card)
     count_dt_glue(torch, dt_cuda, dtm, det, im)
     tp_row = check_transpose(torch, np, tc, dtm, gen, det, im)
-    bwd_row = check_dt_bwd(torch, dt_cuda, gen)
+    bwd_row = check_dt_bwd(torch, dt_cuda, kernels, gen)
     train = check_train(torch, np, pbd, pbd_train, dt_cuda, card)
-    win_row = check_dt_window(torch, dt_cuda, dtm, gen, det, im)
+    win_row = check_dt_window(torch, dt_cuda, variants, gen, det, im)
     win = check_window_detect(torch, dt_cuda, conv_cuda, det, im, card)
     with window_dt(True):
         profile_person26(torch, det, im, win["ms"], phase="window_profile")
@@ -1783,6 +1820,7 @@ def main() -> int:
     table = {"kernels": [
         {"name": "dt1d_axis2", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d.cu",
+         "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:518",
          "also_replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d"], "hybrid_launches": hyb["dt1d"], **dt_row},
@@ -1790,6 +1828,7 @@ def main() -> int:
         # counted where they launch
         {"name": "dt1d_axis2_xpass", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d.cu",
+         "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d_aux"], "hybrid_launches": hyb["dt1d_aux"],
          **xpass_row},
@@ -1805,6 +1844,7 @@ def main() -> int:
          "launches": train["launches"], **bwd_row},
         {"name": "dt1d_window_axis2", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_window.cu",
+         "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:321",
          "launches": win["launches"], **win_row},
         {"name": "transpose32", "route": "cuda",

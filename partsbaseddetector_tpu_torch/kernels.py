@@ -53,6 +53,9 @@ _SIGNATURES = {
     "pbd_transpose32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "pbd_dt1d_rows": ([], _I),
     "pbd_dt1d_chunk": ([], _I),
+    # h, w, dlen
+    "pbd_dt1d_bwd_strips": ([_I] * 3, _I),
+    "pbd_dt1d_bwd_segments": ([_I] * 3, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

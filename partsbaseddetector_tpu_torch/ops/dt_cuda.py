@@ -26,14 +26,17 @@ subgradient, with d = q - v* at the winning source v*,
   g_a[b] = sum_{i,w} g*d^2,   g_b[b] = sum_{i,w} g*d.
 On a CUDA tensor it launches `csrc/dt1d_bwd.cu`, on a CPU tensor it runs
 `dt1d_bwd_plain`. shift, nvalid and aux get no gradient, and an output
-that is -inf (no live source) passes none on.
+that is -inf (no live source) passes none on. The kernel sums in a fixed
+order, the same bits on every run; `dt1d_bwd_order_plain` states that
+order in torch for the card tests.
 
 `dt1d_window` replaces K5, `partsbaseddetector_tpu/ops/pallas_dt.py::
 _dt1d_pallas_window` (kernel `_make_window_kernel`): the same transform
 at step 1 with integral shifts, exact only at outputs i < out_valid[b, w]
-(the consumer's extent) and (-inf, 0) beyond, so that each output's scan
-may stop as soon as no farther source can win. On a CUDA tensor it
-launches `csrc/dt1d_window.cu`, on a CPU tensor it runs
+(the consumer's extent) and (-inf, 0) beyond. On a CUDA tensor it
+launches `csrc/dt1d_window.cu`, K1's core in its window form, which
+skips what out_valid leaves don't-care (`dt1d_chunk_keep_plain(...,
+out_valid=)` states its rule); on a CPU tensor it runs
 `dt1d_window_plain`.
 """
 
@@ -54,10 +57,15 @@ bwd_launches = 0
 window_launches = 0
 
 _NEG_INF = -math.inf
-# csrc/dt1d.cu's kR and kV: the consecutive output rows one thread owns
+# csrc/dt1d_core.cuh's kR and kV: the consecutive output rows one thread owns
 # (a run) and the source rows of one chunk of its pruning rule
 DT1D_ROWS = 8
 DT1D_CHUNK = 16
+# csrc/dt1d_bwd.cu's kMaxWarps and kSlabBytes: the warps of a map's block
+# at most, and the shared memory its per-warp slabs may take (they set its
+# layout, and so the order of its sums: dt1d_bwd_layout)
+DT1D_BWD_MAX_WARPS = 8
+DT1D_BWD_SLAB_BYTES = 224 * 1024
 
 
 def dt1d_plain(
@@ -110,29 +118,50 @@ def dt1d_chunk_keep_plain(
     step: int = 1,
     rows: int = DT1D_ROWS,
     chunk: int = DT1D_CHUNK,
+    out_valid: torch.Tensor = None,
 ) -> torch.Tensor:
-    """The chunk-pruning rule of `csrc/dt1d.cu` in torch, in the kernel's
-    own float32 arithmetic: which chunks of `chunk` source rows each run
-    of `rows` consecutive output rows keeps, per column. Arguments as
-    for `dt1d_plain` (sources finite or -inf). Returns a bool tensor
-    (B, ceil(dlen / rows), ceil(H / chunk), W).
+    """The chunk-pruning rule of `csrc/dt1d_core.cuh` in torch, in the
+    kernel's own float32 arithmetic: which chunks of `chunk` source rows
+    each run of `rows` consecutive output rows keeps, per column.
+    Arguments as for `dt1d_plain` (sources finite or -inf); with
+    out_valid (B, W) int, the rule of the window form (K5). Returns a
+    bool tensor (B, ceil(dlen / rows), ceil(H / chunk), W).
 
-    A run first evaluates a seed window of `chunk` sources centred on
-    its rows; the smallest of its rows' best seed values is the
-    threshold `thr`. For chunk [v0, v1] every displacement d = q - v of
-    the run lies in [q_lo - v1, q_hi - v0], over which the penalty
-    (a*d + b)*d is at most `pm`, the largest of its values at the two
-    ends and at the vertex -b/(2a) clamped into the interval. The chunk
-    is dropped when its maximum `cm` is -inf or when
-    (cm + pm) + (1e-3 + 1e-3*(|cm| + |pm|)) < thr. The kernel evaluates
-    every chunk that any lane of a warp keeps, so it evaluates at least
-    these; every source that reaches an output's maximum must lie in a
-    kept chunk (`tests/test_torch_dt_prune.py`)."""
+    A run's live rows are its rows inside the map, or with out_valid
+    those before out_valid[b, w]; only they count below, and a run with
+    none keeps no chunk. A run first evaluates a seed window of `chunk`
+    sources centred on its live rows; the smallest of their best seed
+    values is the threshold `thr`. For chunk [v0, v1] every
+    displacement d = q - v of a live row lies in [q_lo - v1, q_hi - v0],
+    over which the penalty (a*d + b)*d is at most `pm`, the largest of
+    its values at the two ends and at the vertex -b/(2a) clamped into
+    the interval. The chunk is dropped when its maximum `cm` is -inf or
+    when (cm + pm) + (1e-3 + 1e-3*(|cm| + |pm|)) < thr. The kernel
+    evaluates every chunk that any lane of a warp keeps, so it evaluates
+    at least these; every source that reaches a live output's maximum
+    must lie in a kept chunk (`tests/test_torch_dt_prune.py`)."""
+    bsz, _, w = src.shape
+    dev = src.device
+    nruns = -(-dlen // rows)
+    i_first = torch.arange(nruns, device=dev) * rows
+    n_live = (dlen - i_first).clamp(max=rows)[None, :, None].expand(bsz, nruns, w)
+    if out_valid is not None:
+        ov = out_valid.to(dev).long().clamp(0, dlen)
+        n_live = torch.minimum(n_live, (ov[:, None, :] - i_first[:, None]).clamp(min=0))
+    return chunk_keep_rows(src, a, b, shift, nvalid, step, rows, chunk,
+                           torch.zeros_like(n_live), n_live)
+
+
+def chunk_keep_rows(src, a, b, shift, nvalid, step, rows, chunk, lo, hi):
+    """`dt1d_chunk_keep_plain` for the rows [lo, hi) of each run, lo and
+    hi (B, runs, W) int: those rows alone set the seed window's centre,
+    the threshold and the displacement interval, and a run with hi <= lo
+    keeps nothing. The kernel's rule is lo = 0, hi = the live rows."""
     bsz, h, w = src.shape
     dev = src.device
     f32 = torch.float32
     nv = nvalid.to(dev).clamp(0, h).long()
-    nruns, nchunks = -(-dlen // rows), -(-h // chunk)
+    nruns, nchunks = lo.shape[1], -(-h // chunk)
     hp = nchunks * chunk
     srcp = torch.full((bsz, hp, w), _NEG_INF, dtype=f32, device=dev)
     srcp[:, :h] = src
@@ -140,40 +169,40 @@ def dt1d_chunk_keep_plain(
     srcp = torch.where(live[:, :, None], srcp, torch.full((), _NEG_INF, device=dev))
     cm = srcp.reshape(bsz, nchunks, chunk, w).amax(dim=2)[:, None]  # (B,1,C,W)
 
-    def pen(d, extra_dims):
-        ix = (slice(None),) + (None,) * extra_dims
+    def pen(d):
+        ix = (slice(None),) + (None,) * (d.dim() - 1)
         return (a[ix] * d + b[ix]) * d
 
     i_first = torch.arange(nruns, device=dev) * rows
-    n_in = (dlen - i_first).clamp(max=rows)  # rows of each run inside the map
-    q_first = shift[:, None] + (step * i_first).to(f32)  # (B, R)
-    q_last = shift[:, None] + (step * (i_first + n_in - 1)).to(f32)
+    n = (hi - lo).clamp(min=1)
+    q_at = lambda r: shift[:, None, None] + (step * (i_first[:, None] + r)).to(f32)
+    q_first, q_last = q_at(lo), q_at(lo + n - 1)  # (B, R, W)
 
     # the seed window [vs, vs + chunk) and each row's best value over it
-    half = ((step * (n_in - 1) - chunk) >> 1).to(f32)
+    half = ((step * (n - 1) - chunk) >> 1).to(f32)
     vs = (q_first.floor() + half).clamp(min=0)
-    vs = torch.minimum(vs, (nv - chunk).clamp(min=0).to(f32)[:, None]).long()
+    vs = torch.minimum(vs, (nv - chunk).clamp(min=0).to(f32)[:, None, None]).long()
     r = torch.arange(rows, device=dev)
     q = shift[:, None, None] + (step * (i_first[:, None] + r)).to(f32)  # (B,R,rows)
-    v = vs[:, :, None] + torch.arange(chunk, device=dev)  # (B, R, chunk)
-    d = q[:, :, :, None] - v[:, :, None, :].to(f32)
-    held = srcp[torch.arange(bsz, device=dev)[:, None, None], v]  # (B,R,chunk,W)
-    seed = (pen(d, 3)[..., None] + held[:, :, None]).amax(dim=3)  # (B,R,rows,W)
-    in_map = (r[None, :] < n_in[:, None])[None, :, :, None]
-    thr = torch.where(in_map, seed, torch.full((), math.inf, device=dev)).amin(dim=2)
+    v = vs[:, :, None] + torch.arange(chunk, device=dev)[:, None]  # (B,R,chunk,W)
+    held = torch.gather(srcp[:, None].expand(bsz, nruns, hp, w), 2, v)
+    d = q[:, :, :, None, None] - v[:, :, None].to(f32)  # (B,R,rows,chunk,W)
+    seed = (pen(d) + held[:, :, None]).amax(dim=3)  # (B,R,rows,W)
+    sets = (r[:, None] >= lo[:, :, None]) & (r[:, None] < hi[:, :, None])
+    thr = torch.where(sets, seed, torch.full((), math.inf, device=dev)).amin(dim=2)
 
     v_lo = torch.arange(nchunks, device=dev) * chunk
     v_hi = torch.minimum(v_lo[None, :] + chunk, nv[:, None]) - 1  # (B, C)
-    d_lo = torch.minimum(q_first, q_last)[:, :, None] - v_hi[:, None, :].to(f32)
-    d_hi = torch.maximum(q_first, q_last)[:, :, None] - v_lo.to(f32)
-    pm = torch.maximum(pen(d_lo, 2), pen(d_hi, 2))  # (B, R, C)
+    d_lo = torch.minimum(q_first, q_last)[:, :, None] - v_hi[:, None, :, None].to(f32)
+    d_hi = torch.maximum(q_first, q_last)[:, :, None] - v_lo[:, None].to(f32)
+    pm = torch.maximum(pen(d_lo), pen(d_hi))  # (B, R, C, W)
     curved = a != 0
     dstar = (-b) / (2.0 * torch.where(curved, a, torch.ones_like(a)))
-    vertex = torch.minimum(torch.maximum(dstar[:, None, None], d_lo), d_hi)
-    pm = torch.where(curved[:, None, None],
-                     torch.maximum(pm, pen(vertex, 2)), pm)[..., None]
+    vertex = torch.minimum(torch.maximum(dstar[:, None, None, None], d_lo), d_hi)
+    pm = torch.where(curved[:, None, None, None], torch.maximum(pm, pen(vertex)), pm)
     slack = 1e-3 + 1e-3 * (cm.abs() + pm.abs())
-    return (cm != _NEG_INF) & ~((cm + pm) + slack < thr[:, :, None, :])
+    keep = (cm != _NEG_INF) & ~((cm + pm) + slack < thr[:, :, None, :])
+    return keep & (hi > lo)[:, :, None, :]
 
 
 def _check_args(what, src, named, aux=None):
@@ -272,6 +301,87 @@ def dt1d_bwd_magnitudes(g_out, out, ptr, shift, h: int, step: int,
     _, d, live = _winners(out, ptr, shift, step, has_aux)
     m_b = torch.where(live, (g_out * d).abs(), torch.zeros((), device=g_out.device))
     return m_src, m_a, m_b.sum(dim=(1, 2))
+
+
+def dt1d_bwd_layout(h: int, w: int, dlen: int) -> tuple:
+    """The layout of `csrc/dt1d_bwd.cu`'s block (one block a map) for
+    maps of h source rows, w columns and dlen output rows: (strips,
+    segments), the 32-column strips a round of the block takes and the
+    row segments (one warp each) per strip. As many strips at once as
+    there are, within DT1D_BWD_MAX_WARPS warps and slabs of shared
+    memory (h x 32 f32 each) within DT1D_BWD_SLAB_BYTES; then as many
+    segments as the warps left allow, at most dlen. (0, 1) where one
+    slab does not fit: the kernel's global-memory path, one warp that
+    takes the strips one after another."""
+    slab = 128 * h
+    if slab > DT1D_BWD_SLAB_BYTES:
+        return 0, 1
+    fit = min(DT1D_BWD_MAX_WARPS, DT1D_BWD_SLAB_BYTES // slab)
+    strips = min(-(-w // 32), fit)
+    return strips, max(1, min(fit // strips, dlen))
+
+
+def dt1d_bwd_order_plain(g_out, out, ptr, shift, h: int, step: int,
+                         has_aux: bool, strips: int = None, segments: int = None):
+    """`dt1d_bwd_plain`'s sums in the order of `csrc/dt1d_bwd.cu`, which
+    the card tests hold the kernel to bit for bit. A map's output rows
+    fall into `segments` contiguous segments of seg = ceil(dlen /
+    segments) rows, its columns into 32-column strips, taken `strips` at
+    a time (a round); warp k = t * segments + j of the block takes strip
+    t of each round and segment j, a lane per column. g_src[v, x] is
+    segment 0's sum of g over its rows with v* = v (ascending), plus
+    segment 1's, and so on. g_a (g_b) adds, per lane, its outputs' g*d*d
+    (g*d) over the rounds in order and its rows in order, then the lanes
+    by a shuffle tree (lane l takes lane l + o, o = 16, 8, 4, 2, 1),
+    then the warps in order. Dead (-inf) outputs add nothing. The layout
+    defaults to the kernel's (`dt1d_bwd_layout`; its global-memory path
+    sums as strips = segments = 1)."""
+    bsz, dlen, w = g_out.shape
+    dev = g_out.device
+    if strips is None or segments is None:
+        strips, segments = dt1d_bwd_layout(h, w, dlen)
+        strips = max(strips, 1)
+    v, d, live = _winners(out, ptr, shift, step, has_aux)
+    zero = torch.zeros((), dtype=g_out.dtype, device=dev)
+    gd = g_out * d
+    terms = [torch.where(live, t, zero) for t in (g_out, gd * d, gd)]
+    v = torch.where(live, v, 0).long()
+    seg = -(-dlen // segments)
+    rounds = -(-w // (32 * strips))
+    width = rounds * strips * 32
+
+    def by_segment(t):  # (B, dlen, W) -> (B, segments, seg, width), zero-padded
+        t = torch.nn.functional.pad(t, (0, width - w, 0, segments * seg - dlen))
+        return t.reshape(bsz, segments, seg, width)
+
+    g, vs = (by_segment(t).permute(1, 2, 0, 3) for t in (terms[0], v))
+    slabs = torch.zeros((segments, bsz, h, width), dtype=g_out.dtype, device=dev)
+    at = (torch.arange(segments, device=dev)[:, None, None],
+          torch.arange(bsz, device=dev)[None, :, None])
+    cols = torch.arange(width, device=dev)
+    for p in range(seg):  # one row of every segment; no cell twice
+        idx = (*at, vs[:, p], cols)
+        slabs[idx] = slabs[idx] + g[:, p]
+    g_src = slabs[0]
+    for j in range(1, segments):
+        g_src = g_src + slabs[j]
+
+    def total(t):
+        lanes = by_segment(t).reshape(bsz, segments, seg, rounds, strips, 32)
+        lanes = lanes.permute(4, 1, 3, 2, 0, 5)  # (strips, segments, rounds, seg, B, 32)
+        acc = torch.zeros((strips, segments, bsz, 32), dtype=g_out.dtype, device=dev)
+        for r in range(rounds):
+            for p in range(seg):
+                acc = acc + lanes[:, :, r, p]
+        for o in (16, 8, 4, 2, 1):
+            acc = acc[..., :o] + acc[..., o:2 * o]
+        acc = acc.reshape(strips * segments, bsz)  # warp k = t * segments + j
+        tot = acc[0]
+        for k in range(1, strips * segments):
+            tot = tot + acc[k]
+        return tot
+
+    return g_src[..., :w].contiguous(), total(terms[1]), total(terms[2])
 
 
 def _dt1d_bwd_cuda(g_out, out, ptr, shift, h, step, has_aux):
@@ -429,26 +539,35 @@ def _dt1d_window_cuda(src, a, b, shift, nvalid, out_valid, dlen, aux):
     return out, ptr
 
 
-def dt1d_window(src, a, b, shift, dlen: int, out_valid, nvalid=None,
+def window_args(src, a, b, shift, dlen: int, out_valid, nvalid=None,
                 aux=None):
-    """The adaptive-window DT (K5) along axis -2 of src (..., H, W), at
-    step 1. Arguments as for `dt1d`, but shift must be integral (the
-    scan steps over integer displacements; the caller decides this on
-    the host), and out_valid (int, broadcastable to (..., W)) gives per
-    output column the number of rows that must be exact: rows at or
-    beyond it come back (-inf, 0). No gradient.
-    Returns (out (..., dlen, W) f32, ptr (..., dlen, W) int32)."""
+    """`dt1d_window`'s arguments as one batch of maps, the form its
+    kernel and plain version take: (src (B, H, W), a, b, shift, nvalid,
+    out_valid (B, W) int32 clamped to [0, dlen], aux or None), all
+    contiguous."""
     batch_shape = src.shape[:-2]
     w = src.shape[-1]
     src3, a_, b_, s_, nv, aux3 = flatten_maps(src, a, b, shift, nvalid, aux)
     ov = torch.as_tensor(out_valid, dtype=torch.int32, device=src.device)
     ov = ov.broadcast_to((*batch_shape, w)).reshape(src3.shape[0], w)
-    ov = ov.clamp(0, dlen).contiguous()
+    return (src3.contiguous(), a_, b_, s_, nv, ov.clamp(0, dlen).contiguous(),
+            None if aux3 is None else aux3.contiguous())
+
+
+def dt1d_window(src, a, b, shift, dlen: int, out_valid, nvalid=None,
+                aux=None):
+    """The adaptive-window DT (K5) along axis -2 of src (..., H, W), at
+    step 1. Arguments as for `dt1d`, but shift must be integral (the
+    caller decides this on the host), and out_valid (int, broadcastable
+    to (..., W)) gives per output column the number of rows that must be
+    exact: rows at or beyond it come back (-inf, 0). No gradient.
+    Returns (out (..., dlen, W) f32, ptr (..., dlen, W) int32)."""
+    batch_shape = src.shape[:-2]
+    w = src.shape[-1]
+    src3, a_, b_, s_, nv, ov, aux3 = window_args(
+        src, a, b, shift, dlen, out_valid, nvalid, aux)
     if src.device.type == "cuda":
-        out, ptr = _dt1d_window_cuda(
-            src3.contiguous(), a_, b_, s_, nv, ov, dlen,
-            None if aux3 is None else aux3.contiguous(),
-        )
+        out, ptr = _dt1d_window_cuda(src3, a_, b_, s_, nv, ov, dlen, aux3)
     elif src.device.type == "cpu":
         out, ptr = dt1d_window_plain(src3, a_, b_, s_, nv, ov, dlen, aux3)
     else:

@@ -1,34 +1,44 @@
-"""Time the DT kernel (K1), the conv (K2, T1), their variants and the
-transpose (T2) on the card.
+"""Time the DT kernels (K1, K5, K4), the conv (K2, T1), their variants
+and the transpose (T2) on the card.
 
-A variant is `csrc/dt1d.cu` or `csrc/conv.cu` (with its core
-`csrc/conv_core.cuh` inlined) with some of its `constexpr` tuning
-constants replaced; the transpose has none and is timed as it is, T1
-(`csrc/conv_proto.cu`) at several toh. With `--baseline-dir`, an earlier
-`dt1d.cu`, `transpose.cu` and `conv.cu` are timed beside them: a
-redesign's before and after on the same inputs in one process. Each
-source is compiled on its own (one `nvcc` each, all started together),
-loaded with `ctypes`, held against the kernel's plain version (bit for
-bit; the conv within 1e-5 * sum|x*w|) and timed by direct launches, all
-in turns, so that their times compare: K1 with CUDA events, T2 and the
-conv by the profiler's device time with the event time beside it:
+A variant is a kernel's source (`csrc/dt1d.cu`, `dt1d_bwd.cu`, `conv.cu`;
+the headers it includes, `dt1d_core.cuh` or `conv_core.cuh`, inlined)
+with some of its `constexpr` tuning constants replaced; the transpose
+and K5 are timed as they are, T1 (`csrc/conv_proto.cu`) at several toh.
+With `--baseline-dir`, earlier sources of the same names (`dt1d.cu`,
+`dt1d_window.cu`, `dt1d_bwd.cu`, `transpose.cu`, `conv.cu`) are timed
+beside them: a redesign's before and after on the same inputs in one
+process. Each source is compiled on its own (one `nvcc` each, all
+started together), loaded with `ctypes`, held against the kernel's
+plain version and timed by direct launches, all in turns, so that their
+times compare: the profiler's device time with CUDA events' time beside
+it, medians of three turns:
 
     python -m partsbaseddetector_tpu_torch.tools.kernel_variants
     python -m partsbaseddetector_tpu_torch.tools.kernel_variants \\
-        --baseline-dir old_csrc   # also time an earlier dt1d.cu / transpose.cu / conv.cu
-    python -m partsbaseddetector_tpu_torch.tools.kernel_variants --only conv
+        --baseline-dir old_csrc   # also time earlier sources
+    python -m partsbaseddetector_tpu_torch.tools.kernel_variants \\
+        --only dt1d_window,dt1d_bwd --baseline-dir old_csrc
 
-Shapes: K1 at the person26 VGA finest bucket, y (80, 126, 166) then x with
-aux (80, 166, 126), on random maps (N(0, 9) sources, a in [-0.06, -0.01])
-and on spiky maps (responses near -1 with a few peaks, a = -0.01); T2 at
-(80, 126, 166) and (1280, 126, 166), a single f32 array and an (f32,
-i32) pair, beside torch's transposed copy and a contiguous copy of the
-same bytes; the conv at the person26 VGA table shape (5, 130, 170, 32) x
-(104, 5, 5, 32), and over the ten buckets of one person26 VGA detect
-(buckets_per_octave=2, the shapes captured from a detect on the card),
-one launch per bucket, and for the default source also all ten in one
-grouped launch (the pipeline's). The last line of the output is one JSON object
-with every time in ms and the card's name and power limit.
+Shapes and rules: K1 at the person26 VGA finest bucket, y (80, 126, 166)
+then x with aux (80, 166, 126), on random maps (N(0, 9) sources, a in
+[-0.06, -0.01]) and on spiky maps (responses near -1 with a few peaks,
+a = -0.01), bit for bit against dt1d_plain; K5 on the y and x pass of the
+largest group of one person26 VGA window detect, captured on the card,
+bit for bit against dt1d_window_plain and equal to K1 (timed beside it)
+inside out_valid; K4 on the person26 240x320 train pair, y (320, 66, 86)
+then x with aux (320, 86, 66), bit for bit against dt1d_bwd_order_plain
+at the warp count the source states and the same bits on two runs (an
+earlier source without that entry within 1e-5 x dt1d_bwd_magnitudes of
+dt1d_bwd_plain); T2 at (80, 126, 166) and (1280, 126, 166), a single f32
+array and an (f32, i32) pair, beside torch's transposed copy and a
+contiguous copy of the same bytes; the conv (within 1e-5 * sum|x*w|) at
+the person26 VGA table shape (5, 130, 170, 32) x (104, 5, 5, 32), and
+over the ten buckets of one person26 VGA detect (buckets_per_octave=2,
+the shapes captured from a detect on the card), one launch per bucket,
+and for the default source also all ten in one grouped launch (the
+pipeline's). The last line of the output is one JSON object with every
+time in ms and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -59,6 +69,17 @@ DT_VARIANTS = {
 }
 
 
+# K4's warps per map at most (the slabs of shared memory it may take
+# bound them too): at the train pair's three strips, 3 warps is one
+# segment a strip, 8 two, 12 four; and the rows of a load batch
+DT_BWD_VARIANTS = {
+    "default": {},
+    "warps3": {"kMaxWarps": 3},
+    "warps12": {"kMaxWarps": 12},
+    "batch8": {"kBatch": 8},
+}
+
+
 CONV_VARIANTS = {
     "default": {},
     # output rows per block (of 128 positions): 16 x 8 instead of 8 x 16
@@ -69,11 +90,13 @@ CONV_VARIANTS = {
 
 
 def variant_source(path: Path, consts: dict) -> str:
+    """path's text with the headers it includes from its own directory
+    inlined (so that their constants can change and the source builds
+    anywhere) and the `constexpr` constants of `consts` replaced."""
     text = path.read_text()
-    include = '#include "conv_core.cuh"'
-    if include in text:  # inline the core, so its constants can change
-        core = (path.parent / "conv_core.cuh").read_text().replace("#pragma once", "")
-        text = text.replace(include, core)
+    for header in re.findall(r'^#include "(\w+\.cuh)"$', text, flags=re.M):
+        core = (path.parent / header).read_text().replace("#pragma once", "")
+        text = text.replace(f'#include "{header}"', core)
     for name, value in consts.items():
         text, n = re.subn(
             rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};", text)
@@ -139,7 +162,7 @@ def dt_inputs(torch, kind: str, bsz: int, h: int, w: int, aux: bool, seed: int):
     return [None if t is None else t.cuda() for t in (src, a, b, shift, nvalid, ax)]
 
 
-def run_dt(torch, cuda_ms, libs: dict) -> dict:
+def run_dt(torch, cuda_ms, device_ms, libs: dict) -> dict:
     from ..ops import dt_cuda
 
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -169,17 +192,246 @@ def run_dt(torch, cuda_ms, libs: dict) -> dict:
                 live = torch.isfinite(want_v)
                 if not torch.equal(out, want_v) or not torch.equal(ptr[live], want_p[live]):
                     raise AssertionError(f"dt1d variant {name} ({kind}) differs from plain")
-        for turn in range(2):
+        samples = {}
+        for turn in range(3):
             for name, fn in fns.items():
-                ms = [cuda_ms(lambda: call(fn, p, *buf), reps=20)
-                      for p, buf in zip(passes, bufs)]
-                key = f"{name}/{kind}"
-                best = times.get(key)
-                if best is None or sum(ms) < best["ms"]:
-                    times[key] = {"ms": sum(ms), "y_ms": ms[0], "x_ms": ms[1]}
+                run = lambda fn=fn: [call(fn, p, *buf) for p, buf in zip(passes, bufs)]
+                got = samples.setdefault(f"{name}/{kind}", {"device_ms": [], "event_ms": []})
+                got["device_ms"].append(device_ms(run, reps=20))
+                got["event_ms"].append(cuda_ms(run, reps=20))
+        times.update(medians(samples))
+    report("dt1d", times)
+    return times
+
+
+def medians(samples: dict) -> dict:
+    """{key: {metric: [per turn]}} -> {key: {metric: median}}: the
+    profiler now and then loses events, so take the middle turn."""
+    return {key: {k: statistics.median(v) for k, v in got.items()}
+            for key, got in samples.items()}
+
+
+def report(family: str, times: dict) -> None:
     for key, t in times.items():
-        print(f"[dt1d] {key} ms={t['ms']:.4f} y={t['y_ms']:.4f} x={t['x_ms']:.4f}",
+        print(f"[{family}] {key} " + " ".join(f"{k}={v:.4f}" for k, v in t.items()),
               flush=True)
+
+
+def window_passes(torch, det=None, im=None) -> tuple:
+    """The (y, x) K5 passes of the group with the largest maps in one
+    person26 detect with the window DT (PBD_DT_WINDOW=1; by default a
+    fresh detector, buckets_per_octave=2, on the seed-0 VGA frame),
+    captured on the card from ops/distance_transform.py's calls of
+    dt1d_window. Each pass is (src, a, b, shift, nvalid, out_valid, dlen,
+    aux) in the form the kernel and `dt1d_window_plain` take
+    (ops/dt_cuda.py::window_args)."""
+    import os
+
+    from .. import PartsBasedDetector, make_person_like_model
+    from ..ops import distance_transform as dtm
+    from ..ops import dt_cuda
+
+    if det is None:
+        det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2)
+    if im is None:
+        im = torch.randint(0, 256, (480, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0)).numpy()
+    calls = []
+    orig = dtm.dt1d_window
+
+    def record(src, a, b, shift, dlen, out_valid, nvalid=None, aux=None):
+        flat = dt_cuda.window_args(src, a, b, shift, dlen, out_valid, nvalid, aux)
+        calls.append((*flat[:6], dlen, flat[6]))
+        return orig(src, a, b, shift, dlen, out_valid, nvalid=nvalid, aux=aux)
+
+    env = os.environ.get("PBD_DT_WINDOW")
+    os.environ["PBD_DT_WINDOW"] = "1"
+    dtm.dt1d_window = record
+    try:
+        det.detect(im)
+    finally:
+        dtm.dt1d_window = orig
+        if env is None:
+            os.environ.pop("PBD_DT_WINDOW", None)
+        else:
+            os.environ["PBD_DT_WINDOW"] = env
+    k = max(range(0, len(calls), 2), key=lambda j: calls[j][0].numel())
+    return calls[k], calls[k + 1]
+
+
+def run_window(torch, cuda_ms, device_ms, libs: dict) -> dict:
+    """Every K5 source and K1 (the package's build) on the captured
+    person26 passes (y, then x with aux): each K5 held to
+    dt1d_window_plain bit for bit and to K1 inside out_valid, then all
+    timed in turns. A K5 that differs is reported and left untimed."""
+    from ..ops import dt_cuda
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    passes = window_passes(torch)
+    wants = [dt_cuda.dt1d_window_plain(*p) for p in passes]
+
+    def launch(fn, p, out, ptr, window: bool):
+        src, a, b, shift, nvalid, ov, dlen, aux = p
+        bsz, h, w = src.shape
+        head = (src.data_ptr(), None if aux is None else aux.data_ptr(), a.data_ptr(),
+                b.data_ptr(), shift.data_ptr(), nvalid.data_ptr())
+        if window:
+            rc = fn(*head, ov.data_ptr(), out.data_ptr(), ptr.data_ptr(), bsz, h, w, dlen,
+                    stream())
+        else:
+            rc = fn(*head, out.data_ptr(), ptr.data_ptr(), bsz, h, w, dlen, 1, stream())
+        kernels.check(rc, "dt1d_window variant launch" if window else "dt1d launch")
+
+    def buffers():
+        return [(torch.empty_like(v), torch.empty_like(p)) for v, p in wants]
+
+    k1 = bind(kernels.library(), "pbd_dt1d_axis2_f32")
+    k1_bufs = buffers()
+    runs = {"k1": lambda: [launch(k1, p, *buf, False) for p, buf in zip(passes, k1_bufs)]}
+    runs["k1"]()
+    for name, lib in libs.items():
+        fn, bufs = bind(lib, "pbd_dt1d_window_axis2_f32"), buffers()
+        run = lambda fn=fn, bufs=bufs: [launch(fn, p, *buf, True)
+                                        for p, buf in zip(passes, bufs)]
+        for out, ptr in bufs:
+            out.fill_(7.0), ptr.fill_(7)
+        run()
+        torch.cuda.synchronize()
+        bad = []
+        for p, (out, ptr), (want_v, want_p), (k1_v, k1_p) in zip(passes, bufs, wants, k1_bufs):
+            inside = torch.arange(p[6], device="cuda")[None, :, None] < p[5][:, None, :]
+            if not (torch.equal(out, want_v) and torch.equal(ptr, want_p)):
+                bad.append("plain")
+            if not (torch.equal(out[inside], k1_v[inside])
+                    and torch.equal(ptr[inside], k1_p[inside])):
+                bad.append("K1")
+        if bad:
+            print(f"[dt1d_window] {name} differs from {', '.join(bad)}: not timed", flush=True)
+            continue
+        runs[name] = run
+    samples = {}
+    for turn in range(3):
+        for name, run in runs.items():
+            got = samples.setdefault(name, {"device_ms": [], "event_ms": []})
+            got["device_ms"].append(device_ms(run, reps=20))
+            got["event_ms"].append(cuda_ms(run, reps=20))
+    times = medians(samples)
+    report("dt1d_window", times)
+    exact = sum(int((torch.arange(p[6], device="cuda")[None, :, None]
+                     < p[5][:, None, :]).sum()) for p in passes)
+    total = sum(p[0].shape[0] * p[6] * p[0].shape[2] for p in passes)
+    times["shapes"] = [f"{tuple(p[0].shape)} dlen {p[6]}" for p in passes]
+    times["outputs_exact"], times["outputs_dont_care"] = exact, total - exact
+    # the work the prune leaves, by the rule's torch statement: chunks
+    # evaluated by a warp (two runs of 16 columns) that any lane keeps
+    for label, window in (("k1", False), ("window", True)):
+        times[f"warp_chunks_{label}"] = sum(
+            warp_chunks(torch, dt_cuda.dt1d_chunk_keep_plain(
+                *p[:5], p[6], 1, out_valid=p[5] if window else None))
+            for p in passes)
+    print(f"[dt1d_window] passes {times['shapes']} outputs exact {exact} "
+          f"don't-care {total - exact}; chunks evaluated by warps: K1 "
+          f"{times['warp_chunks_k1']}, window {times['warp_chunks_window']}", flush=True)
+    return times
+
+
+def warp_chunks(torch, keep) -> int:
+    """(B, runs, chunks, W) kept chunks -> the chunk evaluations of the
+    kernel's warps, each two consecutive runs of one 16-column tile
+    (csrc/dt1d_core.cuh: kCols = 16, a warp holds 32 / kCols row groups),
+    which evaluate a chunk when any of their lanes keeps it."""
+    bsz, runs, chunks, w = keep.shape
+    k = torch.nn.functional.pad(keep.to(torch.uint8), (0, -w % 16, 0, 0, 0, runs % 2))
+    k = k.reshape(bsz, -1, 2, chunks, k.shape[-1] // 16, 16)
+    return int(k.amax(dim=(2, 5)).sum())
+
+
+def bwd_inputs(torch) -> list:
+    """chip_smoke.py's person26 240x320 finest-bucket pair for K4: y
+    (320, 66, 86), then x with aux (320, 86, 66), forward outputs from
+    K1 on the card and N(0, 1) cotangents. Each case is the argument
+    tuple of dt1d_bwd: (g, out, ptr, shift, h, step, has_aux)."""
+    from ..ops import dt_cuda
+
+    gen = torch.Generator().manual_seed(8)
+    cases = []
+    for bsz, h, w, aux in ((320, 66, 86, False), (320, 86, 66, True)):
+        src = torch.randn((bsz, h, w), generator=gen) * 3
+        a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
+        b = 0.3 * torch.randn((bsz,), generator=gen)
+        g = torch.randn((bsz, h, w), generator=gen)
+        shift = torch.randint(-3, 4, (bsz,), generator=gen).float()
+        ax = torch.randint(0, 4096, (bsz, h, w), generator=gen,
+                           dtype=torch.int32).cuda() if aux else None
+        src, a, b, g, shift = (t.cuda() for t in (src, a, b, g, shift))
+        out, ptr = dt_cuda.dt1d(src, a, b, shift, h, 1, aux=ax)
+        cases.append((g, out, ptr, shift, h, 1, aux))
+    return cases
+
+
+def run_bwd(torch, cuda_ms, device_ms, libs: dict) -> dict:
+    """Every K4 source on the train pair, held first: a source that
+    states its layout (pbd_dt1d_bwd_strips, pbd_dt1d_bwd_segments) to
+    dt1d_bwd_order_plain at that layout bit for bit and to itself on a
+    second run; an earlier one to dt1d_bwd_plain within 1e-5 x
+    dt1d_bwd_magnitudes. Then timed in turns. A source that fails is
+    reported and left untimed."""
+    from ..ops import dt_cuda
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    cases = bwd_inputs(torch)
+    runs, layouts = {}, {}
+    for name, lib in libs.items():
+        fn = bind(lib, "pbd_dt1d_axis2_bwd_f32")
+        bufs = [tuple(torch.empty(shape, device="cuda") for shape in
+                      ((g.shape[0], h, g.shape[2]), (g.shape[0],), (g.shape[0],)))
+                for g, _, _, _, h, _, _ in cases]
+
+        def run(fn=fn, bufs=bufs):
+            for (g, out, ptr, shift, h, step, aux), res in zip(cases, bufs):
+                bsz, dlen, w = g.shape
+                kernels.check(fn(g.data_ptr(), out.data_ptr(), ptr.data_ptr(),
+                                 shift.data_ptr(), *(t.data_ptr() for t in res),
+                                 bsz, h, w, dlen, step, int(aux), stream()),
+                              "dt1d_bwd variant launch")
+
+        run()
+        first = [tuple(t.clone() for t in res) for res in bufs]
+        run()
+        torch.cuda.synchronize()
+        stated = hasattr(lib, "pbd_dt1d_bwd_strips")
+        bad = []
+        for case, res, res0 in zip(cases, bufs, first):
+            if stated:
+                g, h = case[0], case[4]
+                lay = tuple(bind(lib, f"pbd_dt1d_bwd_{what}")(h, g.shape[2], g.shape[1])
+                            for what in ("strips", "segments"))
+                layouts.setdefault(name, []).append(lay)
+                want = dt_cuda.dt1d_bwd_order_plain(*case, max(1, lay[0]), lay[1])
+                if not all(torch.equal(x, y) for x, y in zip(res, want)):
+                    bad.append("dt1d_bwd_order_plain")
+                if not all(torch.equal(x, y) for x, y in zip(res, res0)):
+                    bad.append("its first run")
+            else:
+                want = dt_cuda.dt1d_bwd_plain(*case)
+                scale = dt_cuda.dt1d_bwd_magnitudes(*case)
+                if not all(bool(((x - y).abs() <= 1e-5 * m).all())
+                           for x, y, m in zip(res, want, scale)):
+                    bad.append("dt1d_bwd_plain (1e-5 x magnitudes)")
+        if bad:
+            print(f"[dt1d_bwd] {name} differs from {', '.join(bad)}: not timed", flush=True)
+            continue
+        runs[name] = run
+    samples = {}
+    for turn in range(3):
+        for name, run in runs.items():
+            got = samples.setdefault(name, {"device_ms": [], "event_ms": []})
+            got["device_ms"].append(device_ms(run, reps=20))
+            got["event_ms"].append(cuda_ms(run, reps=20))
+    times = medians(samples)
+    report("dt1d_bwd", times)
+    times["layouts"] = layouts
+    print(f"[dt1d_bwd] (strips, segments) per pass (y, x): {layouts}", flush=True)
     return times
 
 
@@ -243,13 +495,9 @@ def run_transpose(torch, cuda_ms, device_ms, libs: dict, old_entry: set) -> dict
                 keep(f"{name}/pair", lambda: fn(x, xt, y, yt))
             for name, run in yard.items():
                 keep(name, run)
-        # medians of the three turns: the profiler now and then loses events
-        times.update({key: {k: statistics.median(v) for k, v in got.items()}
-                      for key, got in samples.items()})
+        times.update(medians(samples))
         del x, y, xt, yt, dst, want_x, want_y
-    for key, t in times.items():
-        print(f"[transpose] {key} device_ms={t['device_ms']:.4f} "
-              f"event_ms={t['event_ms']:.4f}", flush=True)
+    report("transpose", times)
     return times
 
 
@@ -398,24 +646,34 @@ def run_conv(torch, cuda_ms, device_ms, libs: dict, proto_lib, baseline: set) ->
                 got = samples.setdefault(f"{name}/{case}", {"device_ms": [], "event_ms": []})
                 got["device_ms"].append(device_ms(run, reps=20))
                 got["event_ms"].append(cuda_ms(run, reps=20))
-        times.update({key: {k: statistics.median(v) for k, v in got.items()}
-                      for key, got in samples.items()})
-    for key, t in times.items():
-        print(f"[conv] {key} device_ms={t['device_ms']:.4f} "
-              f"event_ms={t['event_ms']:.4f}", flush=True)
+        times.update(medians(samples))
+    report("conv", times)
     times["worst_ratio_positive"] = worst
     return times
+
+
+FAMILIES = ("dt1d", "dt1d_window", "dt1d_bwd", "transpose", "conv")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-dir", type=Path, default=None,
-                    help="a directory with an earlier dt1d.cu, transpose.cu and conv.cu")
-    ap.add_argument("--only", choices=("dt1d", "transpose", "conv"), default=None,
-                    help="time one kernel family only")
+                    help="a directory with earlier sources of the families timed "
+                         "(dt1d.cu, dt1d_window.cu, dt1d_bwd.cu, transpose.cu, conv.cu)")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated families to time, of " + ", ".join(FAMILIES)
+                         + " (default: all)")
+    ap.add_argument("--dt-variants", default=",".join(DT_VARIANTS),
+                    help="comma-separated dt1d variants to build (default: all)")
     ap.add_argument("--conv-variants", default=",".join(CONV_VARIANTS),
                     help="comma-separated conv variants to build (default: all)")
+    ap.add_argument("--bwd-variants", default=",".join(DT_BWD_VARIANTS),
+                    help="comma-separated dt1d_bwd variants to build (default: all)")
     args = ap.parse_args(argv)
+    only = FAMILIES if args.only is None else tuple(args.only.split(","))
+    unknown = set(only) - set(FAMILIES)
+    if unknown:
+        ap.error(f"--only: unknown families {sorted(unknown)}")
     import torch
 
     from ..utils.profiling import cuda_ms, device_ms
@@ -426,34 +684,41 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    want = lambda stem: args.only in (None, stem)
-    jobs = {}
-    if want("dt1d"):
-        jobs.update({f"dt1d_{k}": variant_source(kernels.CSRC / "dt1d.cu", v)
-                     for k, v in DT_VARIANTS.items()})
-    if want("transpose"):
-        jobs["transpose_default"] = (kernels.CSRC / "transpose.cu").read_text()
-    if want("conv"):
-        names = {"default", *args.conv_variants.split(",")}
-        jobs.update({f"conv_{k}": variant_source(kernels.CSRC / "conv.cu", CONV_VARIANTS[k])
-                     for k in CONV_VARIANTS if k in names})
+    variants = {
+        "dt1d": {k: DT_VARIANTS[k] for k in DT_VARIANTS
+                 if k in {"default", *args.dt_variants.split(",")}},
+        "dt1d_window": {"default": {}},
+        "dt1d_bwd": {k: DT_BWD_VARIANTS[k] for k in DT_BWD_VARIANTS
+                     if k in {"default", *args.bwd_variants.split(",")}},
+        "transpose": {"default": {}},
+        "conv": {k: CONV_VARIANTS[k] for k in CONV_VARIANTS
+                 if k in {"default", *args.conv_variants.split(",")}},
+    }
+    jobs, family = {}, {}
+    for stem in only:
+        for k, consts in variants[stem].items():
+            jobs[f"{stem}_{k}"] = variant_source(kernels.CSRC / f"{stem}.cu", consts)
+            family[f"{stem}_{k}"] = stem
+        path = None if args.baseline_dir is None else args.baseline_dir / f"{stem}.cu"
+        if path is not None and path.exists():
+            jobs[f"{stem}_baseline"] = variant_source(path, {})
+            family[f"{stem}_baseline"] = stem
+    if "conv" in only:
         jobs["proto_default"] = variant_source(kernels.CSRC / "conv_proto.cu", {})
-    old = set()
-    if args.baseline_dir is not None:
-        for stem in ("dt1d", "transpose", "conv"):
-            path = args.baseline_dir / f"{stem}.cu"
-            if want(stem) and path.exists():
-                jobs[f"{stem}_baseline"] = path.read_text()
-                old.add(f"{stem}_baseline")
+    old = {name for name in jobs if name.endswith("_baseline")}
     libs = build_all(jobs)
     result = {"card": card}
-    pick = lambda stem: {k: v for k, v in libs.items() if k.startswith(stem + "_")}
-    if want("dt1d"):
-        result["dt1d"] = run_dt(torch, cuda_ms, pick("dt1d"))
-    if want("transpose"):
+    pick = lambda stem: {k: v for k, v in libs.items() if family.get(k) == stem}
+    if "dt1d" in only:
+        result["dt1d"] = run_dt(torch, cuda_ms, device_ms, pick("dt1d"))
+    if "dt1d_window" in only:
+        result["dt1d_window"] = run_window(torch, cuda_ms, device_ms, pick("dt1d_window"))
+    if "dt1d_bwd" in only:
+        result["dt1d_bwd"] = run_bwd(torch, cuda_ms, device_ms, pick("dt1d_bwd"))
+    if "transpose" in only:
         result["transpose"] = run_transpose(
             torch, cuda_ms, device_ms, pick("transpose"), old)
-    if want("conv"):
+    if "conv" in only:
         torch.backends.cuda.matmul.allow_tf32 = False
         result["conv"] = run_conv(torch, cuda_ms, device_ms, pick("conv"),
                                   libs["proto_default"], old)

@@ -7,7 +7,9 @@ kernels): without one it skips. On the card, run
 The kernels are held to: the DT bit for bit (values, and pointers at
 live outputs); the conv (3xTF32) within 1e-5 * sum|x*w|, and its grouped
 launch equal to single launches bit for bit; the DT's backward (K4)
-within 1e-5 * sum|g| per source and 1e-5 * sum|g*d^2|, sum|g*d| per map;
+bit for bit against its own order of the sums (dt1d_bwd_order_plain),
+the same bits on every run, and within 1e-5 * sum|g| per source and 1e-5 *
+sum|g*d^2|, sum|g*d| per map of dt1d_bwd_plain;
 the adaptive-window DT (K5) bit for bit against its plain version, and
 against K1 inside out_valid. Detect with the window DT gives the default
 detect's candidates bit for bit; the Fourier and RGB-D detectors give the
@@ -121,13 +123,21 @@ def test_dt_kernel_edge_shapes_match_plain(cuda, name, bsz, h, w, dlen, step,
 
 def test_dt_kernel_constants_and_refusals(cuda):
     """The run and chunk sizes the torch statement of the pruning rule
-    assumes are the kernel's; more than 65,535 maps are refused."""
+    assumes are the kernel's (K1 and K5 share them), and so is the warp
+    count that sets the order of K4's sums; more than 65,535 maps are
+    refused."""
     from partsbaseddetector_tpu_torch import kernels
     from partsbaseddetector_tpu_torch.ops import dt_cuda
 
     lib = kernels.library()
     assert lib.pbd_dt1d_rows() == dt_cuda.DT1D_ROWS
     assert lib.pbd_dt1d_chunk() == dt_cuda.DT1D_CHUNK
+    for h in (1, 9, 66, 86, 224, 225, 500, 1792, 1793, 1900):
+        for w in (1, 32, 66, 86, 166, 300):
+            for dlen in (1, 2, 5, 66, 86, 200):
+                got = (lib.pbd_dt1d_bwd_strips(h, w, dlen),
+                       lib.pbd_dt1d_bwd_segments(h, w, dlen))
+                assert got == dt_cuda.dt1d_bwd_layout(h, w, dlen)
     src = torch.zeros((65536, 2, 2), device=cuda)
     zeros = torch.zeros((65536,), device=cuda)
     with pytest.raises(ValueError, match="exceed one launch"):
@@ -220,10 +230,20 @@ def test_golden_fixture_on_cuda(cuda):
         (5, 36, 20, 15, 2, False, False, False),  # step 2
         (6, 24, 40, 24, 1, True, True, False),  # integer ties
         (6, 30, 33, 30, 1, True, False, True),  # dead outputs
+        (5, 9, 70, 5, 1, False, False, False),  # fewer rows than warps
+        (4, 20, 300, 17, 1, True, False, False),  # more strips than warps
         (320, 66, 86, 66, 1, False, False, False),  # person26 240x320 y pass
+        (320, 86, 66, 86, 1, True, False, False),  # and its x pass
+        (2, 1900, 40, 60, 1, True, False, False),  # too tall for a slab
     ],
 )
 def test_dt_backward_kernel_matches_plain(cuda, bsz, h, w, dlen, step, aux, ints, dead):
+    """K4 against dt1d_bwd_order_plain bit for bit (its own order of the
+    sums, at the layout it states), the same bits on a second run,
+    and against dt1d_bwd_plain within 1e-5 * sum|g| per source and 1e-5
+    * sum|g*d^2|, sum|g*d| per map; the tallest map takes the kernel's
+    global-memory path."""
+    from partsbaseddetector_tpu_torch import kernels
     from partsbaseddetector_tpu_torch.ops import dt_cuda
 
     gen = torch.Generator().manual_seed(bsz * h + w)
@@ -248,7 +268,15 @@ def test_dt_backward_kernel_matches_plain(cuda, bsz, h, w, dlen, step, aux, ints
     assert bool((out == -torch.inf).any()) == dead
     before = dt_cuda.bwd_launches
     got = dt_cuda.dt1d_bwd(g, out, ptr, sh, h, step, aux)
-    assert dt_cuda.bwd_launches == before + 1
+    again = dt_cuda.dt1d_bwd(g, out, ptr, sh, h, step, aux)
+    assert dt_cuda.bwd_launches == before + 2
+    lib = kernels.library()
+    strips, segments = lib.pbd_dt1d_bwd_strips(h, w, dlen), lib.pbd_dt1d_bwd_segments(h, w, dlen)
+    assert (strips == 0) == (h == 1900)
+    exact = dt_cuda.dt1d_bwd_order_plain(g, out, ptr, sh, h, step, aux, max(1, strips), segments)
+    for x, y, z in zip(got, exact, again):
+        assert torch.equal(x, y)
+        assert torch.equal(x, z)
     want = dt_cuda.dt1d_bwd_plain(g, out, ptr, sh, h, step, aux)
     # g_src within 1e-5 * sum|g| per source, g_a and g_b within 1e-5 *
     # sum|g*d^2| and sum|g*d| per map: the kernel sums in another order
@@ -288,8 +316,8 @@ def test_dt_autograd_on_cuda_matches_cpu(cuda):
         (40, 50, 37, False, None),  # y pass
         (50, 40, 45, False, None),  # x pass shape
         (24, 40, 24, True, None),  # integer ties
-        (30, 33, 30, False, (0.0, 0.0)),  # flat penalty: exitable
-        (30, 33, 30, False, (0.0, 0.5)),  # linear penalty: full scan
+        (30, 33, 30, False, (0.0, 0.0)),  # flat penalty
+        (30, 33, 30, False, (0.0, 0.5)),  # linear penalty
         (126, 166, 126, False, None),  # person26 VGA finest bucket
     ],
 )
@@ -327,6 +355,58 @@ def test_window_kernel_matches_plain_and_k1(cuda, h, w, dlen, ints, ab, aux):
     assert torch.equal(got_p, want_p)
     k1_v, k1_p = dt_cuda.dt1d(src, a, b, sh, dlen, 1, nvalid=nv, aux=ax)
     inside = torch.arange(dlen, device=cuda)[None, :, None] < ov[:, None, :]
+    assert torch.equal(got_v[inside], k1_v[inside])
+    assert torch.equal(got_p[inside], k1_p[inside])
+    assert bool((got_v[~inside] == -torch.inf).all()) and bool((got_p[~inside] == 0).all())
+
+
+@pytest.mark.parametrize(
+    "name,bsz,h,w,dlen,ov,shift,aux",
+    [
+        ("out_valid_all_zero", 6, 40, 50, 37, "zero", "int", True),
+        ("out_valid_all_dlen", 6, 40, 50, 37, "full", "int", False),
+        ("out_valid_ragged", 6, 40, 50, 37, "ragged", "int", True),
+        ("out_valid_one_column_live", 6, 60, 70, 60, "one", "int", False),
+        ("streamed_tall_map", 2, 1100, 40, 70, "ragged", "int", True),
+        ("streamed_tall_map_all_dead", 2, 1100, 40, 70, "zero", "int", False),
+        ("shift_beyond_2_22", 5, 40, 33, 37, "ragged", "huge", True),
+    ],
+)
+def test_window_kernel_extents_tall_maps_and_large_shifts(cuda, name, bsz, h, w, dlen,
+                                                          ov, shift, aux):
+    """K5 on K1's core where the window form changes what runs: blocks
+    and warps with no live row (out_valid all 0, one live column), no
+    don't-care output at all (all dlen, K1's work), the streamed path of
+    maps taller than stay resident, and integral shifts beyond 2^22,
+    which take the general path. Bit for bit against its plain version,
+    equal to K1 inside out_valid."""
+    from partsbaseddetector_tpu_torch.ops import dt_cuda
+
+    gen = torch.Generator().manual_seed(h * w + dlen + len(name))
+    src = torch.randn((bsz, h, w), generator=gen) * 3
+    nv = torch.randint(1, h + 1, (bsz,), generator=gen, dtype=torch.int32)
+    nv[0], nv[1] = h, 0
+    src = torch.where(torch.arange(h)[None, :, None] < nv[:, None, None], src, -torch.inf)
+    a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
+    b = 0.3 * torch.randn((bsz,), generator=gen)
+    sh = torch.randint(-3, 4, (bsz,), generator=gen).float()
+    if shift == "huge":
+        sh = sh + float(2**22 + 5)
+    ovt = {
+        "zero": torch.zeros((bsz, w), dtype=torch.int32),
+        "full": torch.full((bsz, w), dlen, dtype=torch.int32),
+        "ragged": torch.randint(0, dlen + 1, (bsz, w), generator=gen, dtype=torch.int32),
+        "one": torch.zeros((bsz, w), dtype=torch.int32).index_fill_(1, torch.tensor([w // 2]), dlen),
+    }[ov]
+    ax = torch.randint(0, 4096, (bsz, h, w), generator=gen, dtype=torch.int32) if aux else None
+    src, a, b, sh, nv, ovt = (t.to(cuda) for t in (src, a, b, sh, nv, ovt))
+    ax = ax.to(cuda) if aux else None
+    got_v, got_p = dt_cuda.dt1d_window(src, a, b, sh, dlen, ovt, nvalid=nv, aux=ax)
+    want_v, want_p = dt_cuda.dt1d_window_plain(src, a, b, sh, nv, ovt, dlen, ax)
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_p, want_p)
+    k1_v, k1_p = dt_cuda.dt1d(src, a, b, sh, dlen, 1, nvalid=nv, aux=ax)
+    inside = torch.arange(dlen, device=cuda)[None, :, None] < ovt[:, None, :]
     assert torch.equal(got_v[inside], k1_v[inside])
     assert torch.equal(got_p[inside], k1_p[inside])
     assert bool((got_v[~inside] == -torch.inf).all()) and bool((got_p[~inside] == 0).all())

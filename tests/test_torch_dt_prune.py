@@ -168,3 +168,125 @@ def test_rule_never_drops_a_winner():
         _check(args, dlen, step, *sizes)
 
     prop()
+
+
+# The window form (K5, csrc/dt1d_window.cu on the same core): with
+# out_valid (B, W), only the rows i < out_valid[b, w] must be exact, and
+# only they set a run's seed window, threshold and displacement interval.
+
+
+def _out_valid(seed, bsz, w, dlen):
+    """Per-column extents that include 0 and dlen and cut runs mid-way."""
+    ov = np.random.RandomState(seed + 1).randint(0, dlen + 1, (bsz, w)).astype(np.int32)
+    ov[:, 0] = 0
+    if w > 1:
+        ov[:, 1] = dlen
+    return torch.from_numpy(ov)
+
+
+def _lost_live_winners(keep, args, ov, dlen, step, rows, chunk):
+    """How many (output, winning source) pairs at live outputs (i <
+    out_valid) the kept chunks miss."""
+    h = args[0].shape[1]
+    wins, _ = _winners(*args, dlen, step)
+    run_of = torch.arange(dlen) // rows
+    chunk_of = torch.arange(h) // chunk
+    kept = keep[:, run_of][:, :, chunk_of]  # (B, dlen, H, W)
+    live = (torch.arange(dlen)[None, :, None] < ov[:, None, :])[:, :, None, :]
+    return int((wins & ~kept & live).sum())
+
+
+def _check_window(args, ov, dlen, step=1, rows=dt_cuda.DT1D_ROWS, chunk=dt_cuda.DT1D_CHUNK):
+    keep = dt_cuda.dt1d_chunk_keep_plain(*args, dlen, step, rows, chunk, out_valid=ov)
+    bsz, h, w = args[0].shape
+    assert keep.shape == (bsz, -(-dlen // rows), -(-h // chunk), w)
+    assert _lost_live_winners(keep, args, ov, dlen, step, rows, chunk) == 0
+    # a run with no live row keeps nothing
+    first = torch.arange(keep.shape[1]) * rows
+    no_live = first[None, :, None] >= ov.long()[:, None, :]  # (B, R, W)
+    assert not bool(keep[no_live[:, :, None, :].expand_as(keep)].any())
+    return keep
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_window_winner_lies_in_a_kept_chunk(name):
+    case = dict(CASES[name])
+    dlen, step = case.pop("dlen"), case.pop("step", 1)
+    seed = sum(map(ord, name))
+    args = _inputs(seed, **case)
+    _check_window(args, _out_valid(seed, args[0].shape[0], args[0].shape[2], dlen), dlen, step)
+
+
+def test_window_rule_at_full_extent_is_k1_rule():
+    """out_valid = dlen everywhere: every row is live, and the rule is K1's."""
+    for kind in ("neg", "ties"):
+        args = _inputs(5, 4, 45, 9, kind, tail=True)
+        ov = torch.full((4, 9), 40, dtype=torch.int32)
+        k1 = dt_cuda.dt1d_chunk_keep_plain(*args, 40)
+        assert torch.equal(dt_cuda.dt1d_chunk_keep_plain(*args, 40, out_valid=ov), k1)
+        assert torch.equal(dt_cuda.dt1d_chunk_keep_plain(*args, 40, out_valid=ov + 7), k1)
+
+
+def test_window_rule_on_person26_passes():
+    """The y and x pass of the largest group of a person26 detect with
+    the window DT (120x160 on the CPU), as ops/distance_transform.py
+    gives them to K5: no live winner is lost, and with about a third of
+    the outputs don't-care the window form keeps fewer chunks than K1's
+    rule on the same maps."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model
+    from partsbaseddetector_tpu_torch.tools.kernel_variants import window_passes
+
+    det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2, device="cpu")
+    im = np.random.RandomState(0).randint(0, 256, (120, 160, 3)).astype(np.uint8)
+    for src, a, b, shift, nvalid, ov, dlen, _ in window_passes(torch, det, im):
+        args = (src, a, b, shift, nvalid)
+        dont_care = float((torch.arange(dlen)[None, :, None] >= ov[:, None, :]).float().mean())
+        assert 0.2 < dont_care < 0.5
+        keep = _check_window(args, ov, dlen)
+        assert int(keep.sum()) < int(dt_cuda.dt1d_chunk_keep_plain(*args, dlen).sum())
+
+
+def test_window_rule_fails_when_dont_care_rows_set_the_threshold():
+    """Not vacuous: a mutant whose seed window, threshold and interval
+    come from the rows at or beyond out_valid (instead of those before
+    it) drops chunks that hold live winners, on maps where a steep
+    spring keeps the live rows' winners apart from the don't-care rows'."""
+    lost = 0
+    for seed in range(6):
+        args = _inputs(seed, 4, 48, 16, "neg")
+        src, a, b, shift, nvalid = args
+        args = (src, a * 20, b, shift, nvalid)
+        dlen, rows, chunk = 48, 8, 4
+        ov = _out_valid(seed, 4, 16, dlen)
+        first = torch.arange(-(-dlen // rows)) * rows
+        n_in = (dlen - first).clamp(max=rows)[None, :, None].expand(4, -1, 16)
+        n_live = torch.minimum(n_in, (ov.long()[:, None, :] - first[:, None]).clamp(min=0))
+        assert _lost_live_winners(
+            dt_cuda.chunk_keep_rows(*args, 1, rows, chunk, torch.zeros_like(n_live), n_live),
+            args, ov, dlen, 1, rows, chunk) == 0
+        mutant = dt_cuda.chunk_keep_rows(*args, 1, rows, chunk, n_live, n_in)
+        lost += _lost_live_winners(mutant, args, ov, dlen, 1, rows, chunk)
+    assert lost > 0
+
+
+def test_window_rule_never_drops_a_winner():
+    """The window form over drawn shapes, springs, extents and sizes."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=40, deadline=None, database=None)
+    @hypothesis.given(
+        seed=st.integers(0, 2**16),
+        h=st.integers(1, 50),
+        w=st.integers(1, 5),
+        dlen=st.integers(1, 60),
+        kind=st.sampled_from(["neg", "ties", "zero", "pos"]),
+        tail=st.booleans(),
+        dead=st.booleans(),
+        sizes=st.sampled_from([(8, 16), (4, 8), (2, 4)]),
+    )
+    def prop(seed, h, w, dlen, kind, tail, dead, sizes):
+        args = _inputs(seed, 3, h, w, kind, "int", tail, dead)
+        _check_window(args, _out_valid(seed, 3, w, dlen), dlen, 1, *sizes)
+
+    prop()
