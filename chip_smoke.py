@@ -60,6 +60,28 @@ script exits non-zero without the final line):
                  equal to the CPU path's within rtol 1e-4, atol 1e-5, the
                  median ms/step over 5 steps after a warm-up and images/s,
                  then a torch.profiler pass over one step
+  9a. mine      the QP trainers' miner (train/detect_tpu.py::TPUMiner) on
+                 person26 at 480x640, max_det 64: K2, K1, K1 with aux
+                 (K3's x pass) and T2 launched per mine, finite and
+                 deterministic; the latent mine on the plain top-1's own
+                 part boxes (overlap 0.7), with and without its mixtures
+                 fixed, returns the plain top-1's placement; the plain and
+                 both latent mines equal the CPU miner's (the plain
+                 version of every kernel) at 480x640 and again at 120x160
+                 (placements exact, scores 1e-4, boxes 1e-3); set_model
+                 on perturbed weights gives a fresh miner's output bit
+                 for bit without a new plan; then ms per plain and latent
+                 mine (median of 5), the latent masks' host build ms and
+                 bytes
+     mine_qp     one latent QP round (train/latent.py::train, iters 1,
+                 nmax 300, 64 negatives per image) on person26 with two
+                 positives and two negatives at 240x320, its features
+                 from the pipeline's pyramid (the card miner's, ops/
+                 pyramid.py::PyramidKernels): finite weights that moved,
+                 validate(), the interval-2 plan built and the interval
+                 restored; wall seconds split into mining, feature
+                 pyramids, placement features, the QP's set-up, writes
+                 and solves (opt, prune, one), and the rest
  10. dt1d_window the adaptive-window DT (K5, K1's core in its window
                  form) against dt1d_window_plain on the card, bit for bit,
                  and against K1 inside out_valid, (-inf, 0) beyond (y
@@ -116,8 +138,9 @@ script exits non-zero without the final line):
                  frames: launches, images/s beside f32 in turns, the first
                  8 frames equal to per-frame detect
 
-The second-to-last lines are the kernel table (one JSON object) and the
-card's `nvidia-smi` name and power limit; the last line is
+The second-to-last lines are the kernel table (one JSON object; the K1,
+K3, K2 and T2 rows carry hybrid_launches and mine_launches, a plain
+mine's launches) and the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits 1 and prints no result.
 """
@@ -141,6 +164,9 @@ CONV_RTOL = 1e-5
 DT_BWD_RTOL = 1e-5
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
 DEVICE = "cuda"
+# the mine phase's frames: the plain and latent mines, and the QP round
+MINE_IMSIZE = (480, 640)
+QP_IMSIZE = (240, 320)
 # the H100 SXM's published peaks at its 700 W limit: HBM3 bytes/s, FP32
 # (non-tensor-core) operations/s and dense TF32 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -813,6 +839,290 @@ def profile_train_step(torch, ctx, wall_ms: float) -> None:
         forward_ops=f"{fwd['ops']:.0f}",
         **{f"{k}_ms": f"{v:.3f}" for k, v in whole["families"].items()},
         top=whole["top"])
+
+
+def mine_counts(dt_cuda, conv_cuda, tc) -> dict:
+    return {"dt1d": dt_cuda.launches, "dt1d_aux": dt_cuda.aux_launches,
+            "conv": conv_cuda.launches, "transpose": tc.launches}
+
+
+def zero_counts(dt_cuda, conv_cuda, tc) -> None:
+    dt_cuda.launches = dt_cuda.aux_launches = 0
+    conv_cuda.launches = 0
+    tc.launches = 0
+
+
+def same_placements(np, a, b, score_tol=0.0, box_tol=0.0) -> bool:
+    """Two miners' detection dicts: the same placements (level,
+    component, per-part grid coords, mixtures), scores within score_tol
+    and boxes within box_tol."""
+    return len(a) == len(b) and all(
+        x["level"] == y["level"] and x["component"] == y["component"]
+        and all(np.array_equal(x[k], y[k]) for k in ("xs", "ys", "mixtures"))
+        and abs(x["score"] - y["score"]) <= score_tol
+        and float(np.abs(x["boxes"] - y["boxes"]).max()) <= box_tol
+        for x, y in zip(a, b)
+    )
+
+
+def placement_difference(np, a, b) -> str:
+    """What same_placements would trip over, for a gate's failure message."""
+    if len(a) != len(b):
+        return f"{len(a)} detections against {len(b)}"
+    pairs = list(zip(a, b))
+    other = [i for i, (x, y) in enumerate(pairs)
+             if (x["level"], x["component"]) != (y["level"], y["component"])
+             or not all(np.array_equal(x[k], y[k]) for k in ("xs", "ys", "mixtures"))]
+    dscore = max((abs(x["score"] - y["score"]) for x, y in pairs), default=0.0)
+    dbox = max((float(np.abs(x["boxes"] - y["boxes"]).max()) for x, y in pairs), default=0.0)
+    return (f"{len(a)} detections, {len(other)} other placements (first rank "
+            f"{other[0] if other else -1}), max |dscore| {dscore:.3e}, max |dbox| {dbox:.3e}")
+
+
+def timed_mine(torch, miner, im, **kw) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = miner.detect(im, thresh=-1e8, **kw)
+    torch.cuda.synchronize()
+    return dets, (time.perf_counter() - t0) * 1e3
+
+
+def perturbed(np, model, seed):
+    """The model with seeded perturbed weights (what a QP update does)."""
+    import dataclasses
+
+    rng = np.random.RandomState(seed)
+    out = dataclasses.replace(model)
+    out.filters = [f + rng.randn(*f.shape).astype(f.dtype) * 0.05
+                   for f in model.filters]
+    out.biases = model.biases + 0.1
+    return out
+
+
+@contextlib.contextmanager
+def qp_round_clock(torch, latent, detect_tpu, clock, miners):
+    """Time latent.train's spans: its mining (each miner.detect,
+    synchronized), feature pyramids and placement features, and its QP:
+    the solver's set-up, its writes, and its solves (opt, prune and one;
+    a call inside another is the outer one's time). Record its miners."""
+    saved = (latent.feature_pyramid, latent.placement_feature,
+             detect_tpu.TPUMiner, latent.QPSolver)
+    depth = {"qp_solve": 0}
+
+    def timed(key, fn, sync=False):
+        def run(*args, **kwargs):
+            outer = depth.get(key, 0) == 0
+            depth[key] = depth.get(key, 0) + 1
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+            finally:
+                depth[key] -= 1
+            if outer:
+                clock[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    class Miner(detect_tpu.TPUMiner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            miners.append(self)
+            self.detect = timed("mine", self.detect, sync=True)
+
+    class Solver(saved[3]):
+        def __init__(self, *args, **kwargs):
+            timed("qp_setup", super().__init__)(*args, **kwargs)
+            self.write = timed("qp_write", self.write)
+            for name in ("opt", "prune", "one"):
+                setattr(self, name, timed("qp_solve", getattr(self, name)))
+
+    latent.feature_pyramid = timed("feature_pyramid", saved[0], sync=True)
+    latent.placement_feature = timed("placement_feature", saved[1])
+    detect_tpu.TPUMiner = Miner
+    latent.QPSolver = Solver
+    try:
+        yield
+    finally:
+        (latent.feature_pyramid, latent.placement_feature,
+         detect_tpu.TPUMiner, latent.QPSolver) = saved
+
+
+def check_mine(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> dict:
+    """The QP trainers' miner (train/detect_tpu.py::TPUMiner) on person26:
+    plain and latent mines at MINE_IMSIZE, held against the CPU miner
+    (the plain version of every kernel) at that size before they are
+    timed, a weight update without re-planning, the card against the CPU
+    at 120x160, and one latent QP round (train/latent.py::train) at
+    QP_IMSIZE. Returns the launches of one plain mine."""
+    from partsbaseddetector_tpu_torch.train import detect_tpu, latent
+
+    model = pbd.make_person_like_model()
+    if not detect_tpu._filters_unique_per_part(model):
+        raise AssertionError("mine: person26 would take the shared-filter route")
+    im = torch.randint(0, 256, (*MINE_IMSIZE, 3), generator=gen,
+                       dtype=torch.uint8).numpy()
+    miner = detect_tpu.TPUMiner(model, max_det=64, device=DEVICE)
+    imsize = "x".join(map(str, MINE_IMSIZE))
+
+    # plain mine: the launches of one mine, then determinism
+    zero_counts(dt_cuda, conv_cuda, tc)
+    first, first_ms = timed_mine(torch, miner, im)
+    counts = mine_counts(dt_cuda, conv_cuda, tc)
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"mine: a kernel was not launched: {counts}")
+    if len(first) != 64 or not all(
+        np.isfinite(d["score"]) and np.isfinite(d["boxes"]).all()
+        and d["boxes"].shape == (26, 4) for d in first
+    ):
+        raise AssertionError(f"mine: {len(first)} detections, malformed or not finite")
+    if not same_placements(np, miner.detect(im, thresh=-1e8), first):
+        raise AssertionError("mine: two plain mines differ")
+
+    # latent mines on the top-1's own part boxes: the top-1 satisfies
+    # them with IoU 1 and is the global maximum, so it comes back
+    top = first[0]
+    lat_kw = dict(part_boxes=top["boxes"], overlap=0.7)
+    fixed_kw = dict(lat_kw, fixed_mixtures=top["mixtures"])
+    zero_counts(dt_cuda, conv_cuda, tc)
+    lat, _ = timed_mine(torch, miner, im, **lat_kw)
+    lat_counts = mine_counts(dt_cuda, conv_cuda, tc)
+    if not same_placements(np, lat, first[:1], score_tol=math.inf, box_tol=math.inf):
+        raise AssertionError("mine: the latent top-1 is not the plain top-1")
+    fixed, _ = timed_mine(torch, miner, im, **fixed_kw)
+    if not same_placements(np, fixed, first[:1], score_tol=math.inf, box_tol=math.inf):
+        raise AssertionError("mine: the fixed-mixtures latent top-1 is not the plain top-1")
+    dscore_latent = abs(lat[0]["score"] - top["score"])
+
+    # the same three mines through the CPU miner, whose wrappers run the
+    # plain version of every kernel on the same inputs and shapes
+    cpu_miner = detect_tpu.TPUMiner(model, max_det=64, device="cpu")
+    t0 = time.perf_counter()
+    dscore_cpu = 0.0
+    for got, kw, what in ((first, {}, "plain"), (lat, lat_kw, "latent"),
+                          (fixed, fixed_kw, "fixed-mixtures latent")):
+        want = cpu_miner.detect(im, thresh=-1e8, **kw)
+        if not want or not same_placements(np, got, want, score_tol=1e-4, box_tol=1e-3):
+            raise AssertionError(f"mine: card and CPU {what} mines differ at {imsize}: "
+                                 + placement_difference(np, got, want))
+        dscore_cpu = max([dscore_cpu] + [abs(g["score"] - w["score"])
+                                         for g, w in zip(got, want)])
+    cpu_s = time.perf_counter() - t0
+
+    # times, after the checks
+    plain_ms = [timed_mine(torch, miner, im)[1] for _ in range(5)]
+    packed, plan, _ = miner._get_plan(im.shape[:2])
+    t0 = time.perf_counter()
+    masks = miner._latent_masks(packed, plan, top["boxes"], 0.7, None)
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    mask_bytes = sum(m.nbytes for m in masks)
+    latent_ms = [timed_mine(torch, miner, im, **lat_kw)[1] for _ in range(5)]
+
+    # a weight update: the same plans, a fresh miner's bits
+    nplans = len(miner._plans)
+    moved = perturbed(np, model, seed=1)
+    miner.set_model(moved)
+    got = miner.detect(im, thresh=-1e8)
+    want = detect_tpu.TPUMiner(moved, max_det=64, device=DEVICE).detect(im, thresh=-1e8)
+    if not same_placements(np, got, want):
+        raise AssertionError("mine: set_model differs from a fresh miner")
+    if len(miner._plans) != nplans:
+        raise AssertionError(f"mine: set_model re-planned ({nplans} -> {len(miner._plans)})")
+
+    # the card against the CPU at 120x160, plain and latent
+    small = im[:120, :160]
+    card_miner = detect_tpu.TPUMiner(model, max_det=64, device=DEVICE)
+    got = card_miner.detect(small, thresh=-1e8)
+    want = cpu_miner.detect(small, thresh=-1e8)
+    small_kw = dict(part_boxes=want[0]["boxes"], overlap=0.7)
+    got_l = card_miner.detect(small, thresh=-1e8, **small_kw)
+    want_l = cpu_miner.detect(small, thresh=-1e8, **small_kw)
+    for g, w, what in ((got, want, "plain"), (got_l, want_l, "latent")):
+        if not w or not same_placements(np, g, w, score_tol=1e-4, box_tol=1e-3):
+            raise AssertionError(f"mine: card and CPU {what} mines differ at 120x160: "
+                                 + placement_difference(np, g, w))
+
+    qp = check_qp_round(torch, np, pbd, model, latent, detect_tpu,
+                        dt_cuda, conv_cuda, tc, gen)
+    log("mine", model="person26", imsize=imsize, max_det=64,
+        dt1d_launches=counts["dt1d"], dt1d_xpass_launches=counts["dt1d_aux"],
+        conv_launches=counts["conv"], transpose_launches=counts["transpose"],
+        latent_launches=",".join(f"{k}:{v}" for k, v in lat_counts.items()),
+        deterministic=True, top_score=f"{top['score']:.4f}",
+        latent_top1_is_plain_top1=True, latent_dscore=f"{dscore_latent:.3e}",
+        fixed_mixtures_top1=True,
+        cpu_match=f"'{imsize} plain 64, latent 1, fixed-mixtures latent 1'",
+        cpu_max_dscore=f"{dscore_cpu:.3e}", cpu_mines_s=f"{cpu_s:.3f}",
+        set_model_equals_fresh=True, plans=nplans,
+        cpu_match_120x160=f"{len(want)}+{len(want_l)} detections",
+        first_mine_ms=f"{first_ms:.3f}",
+        ms_per_plain_mine_median=f"{statistics.median(plain_ms):.3f}",
+        ms_per_latent_mine_median=f"{statistics.median(latent_ms):.3f}",
+        latent_mask_build_ms=f"{mask_ms:.3f}", latent_mask_bytes=mask_bytes,
+        plain_ms_all=",".join(f"{t:.3f}" for t in plain_ms),
+        latent_ms_all=",".join(f"{t:.3f}" for t in latent_ms), card=f"'{card}'")
+    log("mine_qp", **qp)
+    return counts
+
+
+def check_qp_round(torch, np, pbd, model, latent, detect_tpu,
+                   dt_cuda, conv_cuda, tc, gen) -> dict:
+    """One latent QP round (train.m) on person26: two positives and two
+    negatives at QP_IMSIZE, the positives' part boxes from a plain mine's
+    best placement that train.m's minsize rule keeps. With the miner on
+    the card, latent.train cuts the QP's features from the pipeline's own
+    pyramid (ops/pyramid.py::PyramidKernels)."""
+    import copy
+
+    frames = [torch.randint(0, 256, (*QP_IMSIZE, 3), generator=gen,
+                            dtype=torch.uint8).numpy() for _ in range(4)]
+    minsize = float(np.prod(np.asarray(model.effective_maxsize()) * model.sbin))
+    probe = detect_tpu.TPUMiner(model, max_det=64, device=DEVICE)
+    positives = []
+    for im in frames[:2]:
+        for d in probe.detect(im, thresh=-1e8):
+            b = d["boxes"]
+            if ((b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1) >= minsize).all():
+                positives.append({"im": im, "points": None, "boxes": b})
+                break
+        else:
+            raise AssertionError("mine_qp: no placement passes the minsize rule")
+    negatives = [{"im": im} for im in frames[2:]]
+    clock = dict.fromkeys(("mine", "feature_pyramid", "placement_feature",
+                           "qp_setup", "qp_write", "qp_solve"), 0.0)
+    miners = []
+    zero_counts(dt_cuda, conv_cuda, tc)
+    t0 = time.perf_counter()
+    with qp_round_clock(torch, latent, detect_tpu, clock, miners):
+        trained = latent.train(
+            copy.deepcopy(model), positives, negatives, warp=False, iters=1,
+            nmax=300, max_neg_per_image=64, device=DEVICE,
+        )
+    wall = time.perf_counter() - t0
+    counts = mine_counts(dt_cuda, conv_cuda, tc)
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"mine_qp: a kernel was not launched: {counts}")
+    pools = [*trained.filters, trained.biases, *trained.defs]
+    if not all(np.isfinite(p).all() for p in pools) or not np.isfinite(trained.thresh):
+        raise AssertionError("mine_qp: the trained weights are not finite")
+    trained.validate()
+    if len(miners) != 1 or (*QP_IMSIZE, 2) not in miners[0]._plans:
+        raise AssertionError(
+            f"mine_qp: no interval-2 plan ({[sorted(m._plans) for m in miners]})")
+    if trained.interval != model.interval:
+        raise AssertionError("mine_qp: the interval was not restored")
+    moved = max(float(np.abs(a - b).max())
+                for a, b in zip(trained.filters, model.filters))
+    if moved == 0.0:
+        raise AssertionError("mine_qp: the round kept the model (no positive mined?)")
+    rest_s = wall - sum(clock.values())
+    return {"imsize": "x".join(map(str, QP_IMSIZE)), "positives": 2, "negatives": 2, "nmax": 300,
+            "plans": "+".join("x".join(map(str, k)) for k in sorted(miners[0]._plans)),
+            "wall_s": f"{wall:.3f}", **{f"{k}_s": f"{v:.3f}" for k, v in clock.items()},
+            "rest_s": f"{rest_s:.3f}", "thresh": f"{trained.thresh:.6f}",
+            "max_filter_change": f"{moved:.3e}",
+            "launches": ",".join(f"{k}:{v}" for k, v in counts.items())}
 
 
 @contextlib.contextmanager
@@ -1802,6 +2112,7 @@ def main() -> int:
     tp_row = check_transpose(torch, np, tc, dtm, gen, det, im)
     bwd_row = check_dt_bwd(torch, dt_cuda, kernels, gen)
     train = check_train(torch, np, pbd, pbd_train, dt_cuda, card)
+    mine = check_mine(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card)
     win_row = check_dt_window(torch, dt_cuda, variants, gen, det, im)
     win = check_window_detect(torch, dt_cuda, conv_cuda, det, im, card)
     with window_dt(True):
@@ -1823,7 +2134,8 @@ def main() -> int:
          "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:518",
          "also_replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
-         "launches": counts["dt1d"], "hybrid_launches": hyb["dt1d"], **dt_row},
+         "launches": counts["dt1d"], "hybrid_launches": hyb["dt1d"],
+         "mine_launches": mine["dt1d"], **dt_row},
         # K3's row: the same kernel's x passes (the transposed map, aux),
         # counted where they launch
         {"name": "dt1d_axis2_xpass", "route": "cuda",
@@ -1831,12 +2143,13 @@ def main() -> int:
          "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d_aux"], "hybrid_launches": hyb["dt1d_aux"],
-         **xpass_row},
+         "mine_launches": mine["dt1d_aux"], **xpass_row},
         {"name": "conv3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/conv_pallas.py:101",
-         "launches": counts["conv"], "hybrid_launches": hyb["conv"], **conv_row,
+         "launches": counts["conv"], "hybrid_launches": hyb["conv"],
+         "mine_launches": mine["conv"], **conv_row,
          "table_shape": conv_table},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
@@ -1851,7 +2164,8 @@ def main() -> int:
          "source": "partsbaseddetector_tpu_torch/csrc/transpose.cu",
          "replaces": "tools/transpose_kernel_probe.py:25",
          "launches": serving["counts"]["transpose"],
-         "hybrid_launches": hyb["transpose"], **tp_row},
+         "hybrid_launches": hyb["transpose"], "mine_launches": mine["transpose"],
+         **tp_row},
         {"name": "conv_proto_3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",

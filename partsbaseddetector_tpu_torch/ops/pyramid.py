@@ -193,6 +193,43 @@ def build_pyramid_features(
     ]
 
 
+class PyramidKernels:
+    """The kernels that `ops/reference_pipeline.feature_pyramid` calls
+    (resize, reduce, hog), run by the port's pyramid ops on one device.
+
+    feature_pyramid(im, model, kernels=PyramidKernels(device)) then
+    builds the features this module's pyramid builds for the detect
+    pipeline (f32 images, each level resized from the f32 one before it,
+    f32 HOG), bit for bit on the card and on the CPU, as float64 NumPy
+    arrays in the reference's unpadded-then-padded layout. They follow
+    the float64 NumPy reference to f32 rounding, apart from HOG cells
+    whose orientation choice is a near-tie, and take a fraction of its
+    time: the reference's loop HOG and three-operand einsum resize need
+    minutes for a 240x320 frame at person26's sbin 4 and interval 10.
+    The images between calls stay on the device as (1, H, W, 3) f32
+    tensors."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def _image(self, im) -> torch.Tensor:
+        if isinstance(im, torch.Tensor):
+            return im
+        return torch.as_tensor(
+            np.asarray(im, dtype=np.float32), device=self.device
+        )[None]
+
+    def resize(self, im, scale: float) -> torch.Tensor:
+        return resize_image(self._image(im), scale)
+
+    def reduce(self, im) -> torch.Tensor:
+        return reduce_image(self._image(im))
+
+    def hog(self, im, sbin: int) -> np.ndarray:
+        feat = hog_features(self._image(im), sbin)[0]
+        return feat.to(torch.float64).cpu().numpy()
+
+
 def response_valid_extents(
     plan: PyramidPlan, bucket: BucketInfo, filter_sizes: np.ndarray,
     border: str = "matlab",

@@ -147,9 +147,12 @@ def root_scores(
     engine: "spatial" or "fourier" (inference only). fft_spectra
     (optional, Fourier): fourier_spectra_args' arrays as tensors on the
     device; without them they are computed (and memoized) on the host
-    and uploaded here. response_masks (optional): one (S_b, Hr, Wr)
-    bool tensor per bucket (depth_response_masks), applied to every
-    filter and image; False cells take the masking value, as outside the valid
+    and uploaded here. response_masks (optional): one bool tensor per
+    bucket, either (S_b, Hr, Wr), a positional gate applied to every
+    filter (depth_response_masks), or (S_b, Hr, Wr, F), a gate per
+    filter (the latent-positive part constraints of
+    train/detect_tpu.py); either form applies to every image of a
+    batch. False cells take the masking value, as outside the valid
     extents.
     dtype: the DP's dtype. HOG and the conv always run in f32 (the K2
     kernel); the responses are cast to dtype before the masking: float32,
@@ -214,9 +217,13 @@ def root_scores(
         )
         resp = mask_responses(resp, vh, vw, neg)
         if response_masks is not None:
+            # (S, Hr, Wr) positional gates broadcast over the filters;
+            # (S, Hr, Wr, F) per-filter gates apply as they are
+            m = response_masks[b]
+            if m.dim() == 3:
+                m = m[..., None]
             resp = torch.where(
-                response_masks[b][..., None], resp,
-                torch.full((), neg, dtype=dtype, device=resp.device),
+                m, resp, torch.full((), neg, dtype=dtype, device=resp.device)
             )
         resps.append(resp)
         vhs.append(vh)

@@ -19,7 +19,8 @@ detect's candidates, and the pyramid's features are the same bits alone,
 in a batch of 8 and on the CPU. T1's
 port (conv_proto) is within 1e-5 * sum|x*w| of its plain version and
 equal to K2 bit for bit at every toh; the hybrid bf16 profile gives the
-CPU path's candidates through K1, K2 and T2.
+CPU path's candidates through K1, K2 and T2, and the QP trainers'
+miner the CPU miner's placements, plain and latent.
 """
 
 import os
@@ -686,3 +687,55 @@ def test_hybrid_detect_on_cuda_matches_cpu(cuda):
     assert all(a > b for a, b in zip(after, before))
     want = PartsBasedDetector(model, device="cpu", **kw).detect(im)
     _same_candidates(got, want, 1e-5 * max(1.0, abs(want[0].score)), 1e-4)
+
+
+def test_miner_on_cuda_matches_cpu(cuda):
+    """The QP trainers' miner on the card runs K1, K2 and T2 and gives
+    the CPU miner's placements, plain and latent (scores within 1e-4,
+    boxes within 1e-3); set_model keeps the plan."""
+    from partsbaseddetector_tpu_torch.ops import conv_cuda, dt_cuda
+    from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+    from partsbaseddetector_tpu_torch.train.detect_tpu import TPUMiner
+
+    model, im = _person_frame()
+    before = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    card = TPUMiner(model, max_det=32, device=cuda)
+    cpu = TPUMiner(model, max_det=32, device="cpu")
+    got, want = card.detect(im, thresh=-1e8), cpu.detect(im, thresh=-1e8)
+    after = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    assert all(a > b for a, b in zip(after, before))
+    kw = dict(thresh=-1e8, part_boxes=want[0]["boxes"], overlap=0.7)
+    got_l, want_l = card.detect(im, **kw), cpu.detect(im, **kw)
+    assert len(got_l) == 1
+    for g_all, w_all in ((got, want), (got_l, want_l)):
+        assert len(g_all) == len(w_all) > 0
+        for g, w in zip(g_all, w_all):
+            assert abs(g["score"] - w["score"]) <= 1e-4
+            assert (g["level"], g["component"]) == (w["level"], w["component"])
+            for key in ("xs", "ys", "mixtures"):
+                np.testing.assert_array_equal(g[key], w[key])
+            np.testing.assert_allclose(g["boxes"], w["boxes"], atol=1e-3)
+    plans = dict(card._plans)
+    card.set_model(model)
+    card.detect(im, thresh=-1e8)
+    assert card._plans.keys() == plans.keys()
+
+
+def test_cuda_miner_warns_on_the_shared_filter_route(cuda):
+    """A card miner whose model shares a filter between two parts mines
+    latent positives with detect_reference on the host, as the JAX
+    package does, and says so."""
+    from partsbaseddetector_tpu_torch.models.model import make_synthetic_model
+    from partsbaseddetector_tpu_torch.train.detect_tpu import TPUMiner
+
+    model = make_synthetic_model(
+        nparts=3, nmix=1, fsize=(3, 3), sbin=8, interval=2, thresh=-1e9,
+        seed=5,
+    )
+    model.filterid[0][2] = model.filterid[0][1].copy()
+    im = (np.random.RandomState(0).rand(96, 104, 3) * 255).astype(np.float64)
+    boxes = np.asarray([[24.0, 24.0, 56.0, 56.0]] * 3)
+    miner = TPUMiner(model, max_det=8, device=cuda)
+    with pytest.warns(UserWarning, match="on the host"):
+        got = miner.detect(im, thresh=-1e8, part_boxes=boxes, overlap=0.3)
+    assert len(got) == 1 and miner._plans == {}

@@ -35,7 +35,8 @@ SCRIPT = textwrap.dedent(
     import chip_smoke  # noqa: F401
 
     for mod in ("train.sgd", "train.fit", "train.checkpoint", "pipeline",
-                "ops.reference_pipeline"):
+                "ops.reference_pipeline", "train.detect_tpu", "train.latent",
+                "train.qp", "train.trainmodel"):
         assert pkg.__name__ + "." + mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not loaded, loaded
