@@ -120,6 +120,24 @@ script exits non-zero without the final line):
  15. stream      detect_stream over 12 VGA frames, RGB and (rgb, uint16
                  depth) mixed, gate and device filter on, lookahead 4,
                  2 workers, readback_batch 3: detect's candidates in order
+ 15a. surfaces   person26 written to .xml and .mat by the port's writers
+                 and read back by load_model, every array equal, the
+                 .xml's detect = the in-memory model's bit for bit; the
+                 ORK-shaped node (apps.pipeline.build of the .xml, a VGA
+                 camera, max_overlap 0.1) over 8 RGB-D VGA frames (uint16
+                 mm) through process_stream: K1, K2 and T2 launched, each
+                 frame = sorted, NMS'd detect bit for bit, ms/frame beside
+                 detect_stream's in turns; all six topics on 2 frames
+                 (depth valid in a window): finite 3-D outputs, each post
+                 stage's host seconds, a flood fill over 20,000 cloud
+                 points; apps.messages from frame 0; eval.test_model on the
+                 card against the CPU path's best candidates at 120x160
+                 (PCK 1.0); visualize_model and hog_picture shapes; equal
+                 canvases from the card's and the CPU's candidates; the
+                 native CPUPartsBasedDetector against the card (the JAX
+                 CPU test's model within 2e-3 / 5e-2; person26 timed);
+                 with PyYAML, build_from_file on config_person.by_parts;
+                 with PIL, apps.demo.main on PNGs
  16. nms         person26 with nms_overlap=0.3: the CPU path's candidates
                  at 120x160, the device keep mask equal to the host
                  part_nms on 8 VGA frames, part_nms_device device ms
@@ -139,8 +157,9 @@ script exits non-zero without the final line):
                  8 frames equal to per-frame detect
 
 The second-to-last lines are the kernel table (one JSON object; the K1,
-K3, K2 and T2 rows carry hybrid_launches and mine_launches, a plain
-mine's launches) and the card's `nvidia-smi` name and power limit; the last line is
+K3, K2 and T2 rows carry hybrid_launches, mine_launches, a plain
+mine's launches, and surfaces_launches, the stream node's over its 8
+frames) and the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits 1 and prints no result.
 """
@@ -148,6 +167,7 @@ package beside this script, it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -193,6 +213,10 @@ cuda_ms = None
 # its profiler timer, device_ms(fn, reps=50): the mean device-busy ms of
 # fn() without the gaps between launches
 device_ms = None
+# device_profile(prof, per=1.0): a profiled window's device ms by kernel
+# family (utils/profiling.py::FAMILIES), the busy total, the device ops
+# and the busiest kernels
+device_profile = None
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -570,41 +594,6 @@ def check_person26(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card) -> tuple:
     return counts, ms, det, im
 
 
-# kernel families of a profile, by a piece of the kernel's name (first
-# match wins: K5 is the DT core's kernel with the tag dt1d_window, K1 the
-# same kernel with dt1d_exact; the backward's name contains the forward's)
-FAMILIES = (("dt1d_window", "dt1d_window"), ("dt1d_bwd", "dt1d_axis2_bwd"),
-            ("dt1d", "dt1d_axis2"), ("conv", "conv3xtf32"),
-            ("transpose", "transpose32"), ("fft", "fft"))
-
-
-def device_profile(torch, prof, per: float = 1.0) -> dict:
-    """Device ms of a profiled window by kernel family, divided by `per`
-    (images or steps), with the busy total, the device ops and the
-    busiest kernels."""
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    kernels = [
-        # device-side events only (kernels, copies): the aten ops that
-        # launched them carry the same time again
-        e for e in prof.key_averages()
-        if dev_us(e) and e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    families = {k: 0.0 for k, _ in FAMILIES}
-    families["other"] = 0.0
-    for e in kernels:
-        key = next((k for k, name in FAMILIES if name in e.key.lower()), "other")
-        families[key] += dev_us(e) / 1e3 / per
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    return {
-        "families": families, "busy": sum(families.values()),
-        "ops": sum(e.count for e in kernels) / per,
-        "top": " | ".join(
-            f"{e.key[:48]} {dev_us(e) / 1e3 / per:.3f}ms x{e.count / per:g}"
-            for e in top),
-    }
-
-
 def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
                      phase: str = "profile") -> dict:
     """torch.profiler over `reps` person26 VGA detects: device time per
@@ -620,7 +609,7 @@ def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
             det.detect(im)
         torch.cuda.synchronize()
     profiled = (time.perf_counter() - t0) * 1e3 / reps
-    got = device_profile(torch, prof, reps)
+    got = device_profile(prof, reps)
     log(phase, profiled_wall_ms_per_image=f"{profiled:.3f}",
         device_busy_ms_per_image=f"{got['busy']:.3f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - got['busy'] / wall_ms):.3f}",
@@ -825,12 +814,12 @@ def profile_train_step(torch, ctx, wall_ms: float) -> None:
     with profile(activities=acts) as prof:
         step(params, opt, imgs, masks, labels)
         torch.cuda.synchronize()
-    whole = device_profile(torch, prof)
+    whole = device_profile(prof)
     with profile(activities=acts) as prof:
         for i, y in enumerate(labels):
             loss_fn.margin_violation(params, imgs[i], float(y), [m[i] for m in masks])
         torch.cuda.synchronize()
-    fwd = device_profile(torch, prof)
+    fwd = device_profile(prof)
     log("train_profile", device_busy_ms_per_step=f"{whole['busy']:.3f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - whole['busy'] / wall_ms):.3f}",
         device_ops_per_step=f"{whole['ops']:.0f}",
@@ -1613,7 +1602,7 @@ def profile_device(torch, run, per: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return device_profile(torch, prof, per)
+    return device_profile(prof, per)
 
 
 def pyramid_batch_invariant(torch, np, frames) -> int:
@@ -1745,6 +1734,478 @@ def check_stream(torch, np, pbd, im, card) -> None:
         candidates=",".join(str(len(g)) for g in got),
         stream_ms_per_frame=f"{stream_ms:.3f}", detect_ms_per_frame=f"{sync_ms:.3f}",
         card=f"'{card}'")
+
+
+# the JAX package's visualize_model(make_person_like_model()) and
+# hog_picture(<a 5x5 filter>) shapes (tests/test_torch_apps.py holds
+# them to the JAX package's output)
+PERSON26_MOSAIC_SHAPE = (600, 680)
+HOG_GLYPH_SHAPE = (100, 100)
+# a VGA camera's intrinsics (examples/conf/config_person.by_parts)
+VGA_CAMERA = {"fx": 525.0, "fy": 525.0, "cx": 319.5, "cy": 239.5}
+# the 3-D frames' depth: valid in a window this size around frame 0's
+# top root box only (0, no return, elsewhere): the node's 3-D boxes keep
+# x and y in pixels (as the JAX package's), so a box's crop takes every
+# valid point of the frame, and the flood fill over a whole VGA cloud
+# takes minutes a box
+DEPTH_WINDOW = (32, 48)
+
+
+def model_difference(np, a, b) -> str:
+    """The first field in which two models differ ('' if none): every
+    array bit for bit, the bias tables by value (the XML writer lays the
+    bias pool out again)."""
+    if (a.interval, a.sbin, a.thresh, a.ncomponents) != (
+            b.interval, b.sbin, b.thresh, b.ncomponents):
+        return "scalars"
+    for key in ("filters", "defs", "anchors"):
+        xs, ys = getattr(a, key), getattr(b, key)
+        if len(xs) != len(ys) or not all(
+                x.shape == y.shape and np.array_equal(x, y) for x, y in zip(xs, ys)):
+            return key
+    for c in range(a.ncomponents):
+        if not np.array_equal(a.parentid[c], b.parentid[c]):
+            return "parentid"
+        for p in range(a.nparts(c)):
+            for key in ("filterid", "defid"):
+                if not np.array_equal(getattr(a, key)[c][p], getattr(b, key)[c][p]):
+                    return key
+            if not np.array_equal(a.biases[a.biasid[c][p]], b.biases[b.biasid[c][p]]):
+                return "bias tables"
+    return ""
+
+
+def matched_within(a, b, score_tol, box_tol) -> bool:
+    """Each candidate of a has its own candidate in b within the
+    tolerances, taken best first: near-equal scores may swap places."""
+    if len(a) != len(b):
+        return False
+    free = list(range(len(b)))
+    for x in a:
+        j = next((j for j in free if abs(x.score - b[j].score) < score_tol
+                  and float(abs(x.parts - b[j].parts).max()) < box_tol), None)
+        if j is None:
+            return False
+        free.remove(j)
+    return True
+
+
+@contextlib.contextmanager
+def clocked_post_stages(stream_mod, timer):
+    """Clock each post stage of the stream node (apps/stream.py's
+    module-level names) into `timer`, restoring them after."""
+    from partsbaseddetector_tpu_torch.types import Candidate
+    from partsbaseddetector_tpu_torch.visualize import Visualize
+
+    def clock(stage, fn):
+        def run(*args, **kwargs):
+            with timer.stage(stage):
+                return fn(*args, **kwargs)
+        return run
+
+    class ClockedCandidate(Candidate):
+        non_maxima_suppression = staticmethod(
+            clock("nms", Candidate.non_maxima_suppression))
+        mask = staticmethod(clock("mask", Candidate.mask))
+
+    class ClockedVisualize(Visualize):
+        def candidates(self, *args, **kwargs):
+            with timer.stage("visualize"):
+                return super().candidates(*args, **kwargs)
+
+    patch = {"Candidate": ClockedCandidate, "Visualize": ClockedVisualize}
+    for name, stage in (("compute_bounding_boxes", "boxes3d"), ("depth_to_cloud", "cloud"),
+                        ("remove_planes", "remove_planes"),
+                        ("cluster_objects", "clustering"), ("estimate_poses", "poses")):
+        patch[name] = clock(stage, getattr(stream_mod, name))
+    saved = {name: getattr(stream_mod, name) for name in patch}
+    for name, fn in patch.items():
+        setattr(stream_mod, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(stream_mod, name, fn)
+
+
+def surfaces_files(np, pbd, model, im, work, card) -> str:
+    """person26 written with the port's XML and .mat writers, read back
+    by load_model: every array equal; a detect with the XML's model =
+    the in-memory model's, bit for bit. Returns the XML's path."""
+    from partsbaseddetector_tpu_torch.models import FileStorageModel, MatlabIOModel
+
+    paths = {"xml": os.path.join(work, "person26.xml"),
+             "mat": os.path.join(work, "person26.mat")}
+    secs = {}
+    for fmt, writer in (("xml", FileStorageModel), ("mat", MatlabIOModel)):
+        t0 = time.perf_counter()
+        writer.write(model, paths[fmt])
+        secs[f"{fmt}_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = pbd.load_model(paths[fmt])
+        secs[f"{fmt}_read_s"] = time.perf_counter() - t0
+        diff = model_difference(np, model, loaded)
+        if diff:
+            raise AssertionError(f"surfaces: the {fmt} file loads with other {diff}")
+    det = pbd.PartsBasedDetector(model, buckets_per_octave=2, device=DEVICE)
+    det_xml = pbd.PartsBasedDetector(pbd.load_model(paths["xml"]),
+                                     buckets_per_octave=2, device=DEVICE)
+    want, got = det.detect(im), det_xml.detect(im)
+    if not want or not same_candidates(got, want):
+        raise AssertionError("surfaces: the .xml model's detect differs from the "
+                             "in-memory model's: " + difference(got, want))
+    log("surfaces_files", model="person26", arrays_equal="xml, mat",
+        xml_bytes=os.path.getsize(paths["xml"]), mat_bytes=os.path.getsize(paths["mat"]),
+        **{k: f"{v:.3f}" for k, v in secs.items()},
+        xml_detect=f"{len(got)} candidates at " + "x".join(map(str, im.shape[:2]))
+        + ", bit-identical", card=f"'{card}'")
+    return paths["xml"]
+
+
+def surfaces_stream(torch, np, pbd, dt_cuda, conv_cuda, tc, im, xml, card) -> tuple:
+    """The ORK-shaped node from the .xml (apps.pipeline.build) serving 8
+    RGB-D VGA frames through process_stream with the candidates topic:
+    K1, K2 and T2 launched, each frame's candidates = sorted, NMS'd
+    detect, bit for bit. Then all six topics on two frames whose depth
+    is valid in a window only, each post stage clocked. Returns the
+    node, the 8 frames and their results, the two 3-D frames and their
+    results, and the kernels' launches over the 8 frames."""
+    from partsbaseddetector_tpu_torch import depth as depth_mod
+    from partsbaseddetector_tpu_torch import native
+    from partsbaseddetector_tpu_torch.apps import pipeline as apps_pipeline
+    from partsbaseddetector_tpu_torch.apps import stream as stream_mod
+    from partsbaseddetector_tpu_torch.cloud import depth_to_cloud, euclidean_clusters
+    from partsbaseddetector_tpu_torch.depth import StereoCameraModel
+    from partsbaseddetector_tpu_torch.types import Candidate
+    from partsbaseddetector_tpu_torch.utils.profiling import Timer
+
+    rng = np.random.RandomState(10)
+    frames = []
+    for i in range(8):
+        rgb = np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
+        depth = ((1.0 + rng.rand(*im.shape[:2])) * 1000.0).astype(np.uint16)
+        frames.append((rgb, depth))
+    cfg = apps_pipeline.PipelineConfig(model_file=xml, camera=dict(VGA_CAMERA),
+                                       max_overlap=0.1)
+    node = apps_pipeline.build(cfg, device=DEVICE, buckets_per_octave=2)
+    published = []
+    node.subscribe("candidates", published.append)
+    list(node.process_stream(frames[:2]))  # warm-up: the plan, the allocator
+    published.clear()
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = list(fn())
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / len(frames)
+
+    dt_cuda.launches = dt_cuda.aux_launches = conv_cuda.launches = tc.launches = 0
+    results, node_ms = run(lambda: node.process_stream(frames))
+    counts = {"dt1d": dt_cuda.launches, "dt1d_aux": dt_cuda.aux_launches,
+              "conv": conv_cuda.launches, "transpose": tc.launches}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"surfaces: a kernel was not launched: {counts}")
+    _, raw_ms = run(lambda: node.detector.detect_stream(frames))
+    _, node_ms2 = run(lambda: node.process_stream(frames))
+    _, raw_ms2 = run(lambda: node.detector.detect_stream(frames))
+    if len(results) != 8 or published[:8] != [r.candidates for r in results]:
+        raise AssertionError("surfaces: the candidates topic missed a frame")
+    for i, (r, (rgb, depth)) in enumerate(zip(results, frames)):
+        want = Candidate.non_maxima_suppression(
+            rgb.shape[:2], Candidate.sort(node.detector.detect(rgb, depth)), 0.1)
+        if not same_candidates(r.candidates, want):
+            raise AssertionError(f"surfaces: frame {i}'s candidates differ from "
+                                 "sorted, NMS'd detect: " + difference(r.candidates, want))
+    if not results[0].candidates:
+        raise AssertionError("surfaces: no candidates on frame 0")
+    # the host depth filter inside detect_stream, on frame 0's detect:
+    # its medians in NumPy (the port's depth.py) beside the native helper
+    rgb0, depth0 = frames[0][0], frames[0][1].astype(np.float32) / 1000.0
+    raw = node.detector.detect(rgb0)
+    t0 = time.perf_counter()
+    depth_mod.filter_candidates_by_depth(node.detector._packed, raw, depth0)
+    filter_ms = (time.perf_counter() - t0) * 1e3
+    boxes = np.array([c.parts[p] for c in raw for p in range(len(c.parts))])
+    native.box_medians(depth0, boxes[:1])  # the build or load, and OpenMP's start
+    t0 = time.perf_counter()
+    med_np = depth_mod._batch_medians(depth0, list(boxes))
+    np_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    med_native = native.box_medians(depth0, boxes)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    log("surfaces_stream", frames="8 uint8 " + "x".join(map(str, im.shape[:2]))
+        + " with uint16 depth (mm)", source="apps.pipeline.build(.xml)",
+        max_overlap=0.1, buckets_per_octave=2, topics="candidates",
+        candidates=",".join(str(len(r.candidates)) for r in results),
+        equal_to_sorted_nms_detect=True,
+        launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+        process_stream_ms_per_frame=f"{node_ms:.3f},{node_ms2:.3f}",
+        detect_stream_ms_per_frame=f"{raw_ms:.3f},{raw_ms2:.3f}",
+        depth_filter_ms=f"{filter_ms:.1f} ({len(raw)} candidates, {len(boxes)} boxes)",
+        medians_numpy_ms=f"{np_ms:.1f}", medians_native_ms=f"{native_ms:.1f}",
+        medians_equal=bool(np.array_equal(med_np, med_native)), card=f"'{card}'")
+
+    # all six topics on frames 0 and 1, their depth valid in a window
+    root = results[0].candidates[0].parts[0]
+    wy, wx = DEPTH_WINDOW
+    cy = int(min(max((root[1] + root[3]) / 2 - wy / 2, 0), im.shape[0] - wy))
+    cx = int(min(max((root[0] + root[2]) / 2 - wx / 2, 0), im.shape[1] - wx))
+    frames3d = []
+    for rgb, depth in frames[:2]:
+        windowed = np.zeros_like(depth)
+        windowed[cy:cy + wy, cx:cx + wx] = depth[cy:cy + wy, cx:cx + wx]
+        frames3d.append((rgb, windowed))
+    for topic in ("image", "mask", "bbox3d", "clusters", "poses"):
+        node.subscribe(topic, lambda payload: None)
+    timer = Timer()
+    with clocked_post_stages(stream_mod, timer):
+        t0 = time.perf_counter()
+        res3d = list(node.process_stream(frames3d))
+        post_wall = time.perf_counter() - t0
+    nfinite = nclusters = 0
+    for i, (r, (rgb, depth)) in enumerate(zip(res3d, frames3d)):
+        want = Candidate.non_maxima_suppression(
+            rgb.shape[:2], Candidate.sort(node.detector.detect(rgb, depth)), 0.1)
+        if not same_candidates(r.candidates, want):
+            raise AssertionError(f"surfaces: 3-D frame {i}'s candidates differ: "
+                                 + difference(r.candidates, want))
+        n = len(r.candidates)
+        if (r.image_rgb is None or r.image_rgb.shape != rgb.shape
+                or r.mask is None or r.mask.shape != rgb.shape[:2]
+                or not (len(r.boxes3d) == len(r.clusters) == len(r.poses) == n)):
+            raise AssertionError(f"surfaces: 3-D frame {i}: a topic's output is missing")
+        for box, cl, pose in zip(r.boxes3d, r.clusters, r.poses):
+            vals = np.array([box.x, box.y, box.z, box.width, box.height, box.depth])
+            no_depth = np.isnan(box.z) and not vals[3:].any()
+            if not (np.isfinite(vals).all() or no_depth):
+                raise AssertionError(f"surfaces: a 3-D box is not finite: {box}")
+            if not np.isfinite(cl).all() or not np.isfinite(pose[:3, :3]).all() or (
+                    len(cl) and not np.isfinite(pose).all()):
+                raise AssertionError("surfaces: a cluster or pose is not finite")
+            nfinite += int(not no_depth)
+            nclusters += int(len(cl) > 0)
+    if not np.isfinite(res3d[0].boxes3d[0].z):
+        raise AssertionError("surfaces: frame 0's top box has no 3-D box")
+    stage_s = {k: sum(v) / len(frames3d) for k, v in timer.times.items()}
+    # one flood fill over 20,000 points of frame 0's whole cloud: the
+    # cost per point of a crop that takes the whole cloud
+    cam = StereoCameraModel(**VGA_CAMERA)
+    cloud = depth_to_cloud(frames[0][1].astype(np.float32) / 1000.0, cam)
+    npts = min(20000, len(cloud))
+    sample = cloud[np.random.RandomState(11).choice(len(cloud), npts, replace=False)]
+    t0 = time.perf_counter()
+    nsample = len(euclidean_clusters(sample))
+    flood_s = time.perf_counter() - t0
+    log("surfaces_post", frames=2, topics="candidates,image,mask,bbox3d,clusters,poses",
+        depth_window="x".join(map(str, DEPTH_WINDOW)),
+        candidates=",".join(str(len(r.candidates)) for r in res3d),
+        finite_3d_boxes=nfinite, nonempty_clusters=nclusters,
+        remove_planes="not used", wall_s_per_frame=f"{post_wall / len(frames3d):.3f}",
+        **{f"{k}_s_per_frame": f"{v:.4f}" for k, v in stage_s.items()},
+        flood_fill_points=npts, flood_fill_s=f"{flood_s:.3f}",
+        flood_fill_clusters=nsample,
+        card=f"'{card}'")
+    return node, frames, results, res3d, frames3d, counts
+
+
+def surfaces_messages_eval(np, pbd, model, node, frames, res3d, frames3d, card) -> None:
+    """apps.messages from frame 0's 3-D result; eval.test_model on the
+    card with ground truth from the CPU path's best candidates at
+    120x160 (PCK 1.0 at every part); visualize_model and hog_picture at
+    the JAX package's shapes; Visualize on the card's and the CPU's
+    candidates gives equal canvases."""
+    from partsbaseddetector_tpu_torch import Visualize
+    from partsbaseddetector_tpu_torch import visualize_model as vm
+    from partsbaseddetector_tpu_torch.apps import messages
+    from partsbaseddetector_tpu_torch.cloud import compute_bounding_boxes
+    from partsbaseddetector_tpu_torch.depth import StereoCameraModel
+    from partsbaseddetector_tpu_torch.eval import metrics
+    from partsbaseddetector_tpu_torch.ops.nms import part_nms
+
+    r0, (rgb0, d0) = res3d[0], frames3d[0]
+    n = len(r0.candidates)
+    name = node.detector.name
+    cubes = messages.message_bounding_boxes(r0.boxes3d, object_name=name)
+    image = messages.message_image_rgb(rgb0, r0.candidates, name)
+    mask = messages.message_mask(rgb0.shape[:2], r0.candidates)
+    cloud = messages.message_clusters(r0.clusters)
+    centroids = [c.mean(axis=0) if len(c) else np.full(3, np.nan) for c in r0.clusters]
+    _, centers = compute_bounding_boxes(r0.candidates, rgb0.shape[:2],
+                                        d0.astype(np.float32) / 1000.0,
+                                        StereoCameraModel(**VGA_CAMERA))
+    poses = messages.message_poses(centroids, centers)
+    if (len(cubes) != n or len(poses["poses"]) != n
+            or len(r0.pose_results(name)) != n
+            or len(cloud["points"]) != sum(len(c) for c in r0.clusters)
+            or not set(np.unique(mask["data"])) <= set(range(n + 1))
+            or not np.array_equal(image["data"], r0.image_rgb)
+            or not all(np.array_equal(p["matrix"], q, equal_nan=True)
+                       for p, q in zip(poses["poses"], r0.poses))):
+        raise AssertionError("surfaces: the messages disagree with frame 0's result")
+
+    cpu = pbd.PartsBasedDetector(model, buckets_per_octave=2, device="cpu")
+    smalls, gts, cpu_cands = [], [], []
+    for rgb, _ in frames[:4]:
+        small = rgb[:120, :160]
+        cands = cpu.detect(small)
+        if not cands:
+            continue
+        boxes = np.stack([c.parts for c in cands])
+        best = cands[int(part_nms(boxes, np.array([c.score for c in cands]), 0.3)[0])]
+        smalls.append(small)
+        cpu_cands.append(cands)
+        gts.append(metrics.boxes_to_keypoints(best.parts)[None])
+    if not smalls:
+        raise AssertionError("surfaces: the CPU path found nothing at 120x160")
+    pck = metrics.test_model(node.detector, smalls, gts)
+    if not (pck == 1.0).all():
+        raise AssertionError(f"surfaces: PCK against the CPU path {pck}")
+    mosaic, glyph = vm.visualize_model(model), vm.hog_picture(model.filters[0])
+    if (mosaic.shape != PERSON26_MOSAIC_SHAPE or glyph.shape != HOG_GLYPH_SHAPE
+            or not mosaic.max() or not glyph.max()):
+        raise AssertionError(f"surfaces: model pictures {mosaic.shape}, {glyph.shape}")
+    vis = Visualize(name)
+    for small, want in zip(smalls, cpu_cands):
+        if not np.array_equal(vis.candidates(small, node.detector.detect(small)),
+                              vis.candidates(small, want)):
+            raise AssertionError("surfaces: the card's and the CPU's canvases differ")
+    log("surfaces_messages_eval", cubes=len(cubes), poses=len(poses["poses"]),
+        cloud_points=len(cloud["points"]), mask_labels=int(mask["data"].max()),
+        eval_frames=f"{len(smalls)} at 120x160", pck=",".join(f"{v:g}" for v in pck[:3])
+        + f",... ({len(pck)} parts)", model_mosaic="x".join(map(str, mosaic.shape)),
+        canvases_card_eq_cpu=len(smalls), card=f"'{card}'")
+
+
+def cut_at_gap(model, scores, lo=20, hi=40):
+    """A copy of the model whose threshold keeps lo-hi of these
+    best-first scores: halfway across the widest gap between two
+    neighbours there, so that rounding cannot move a candidate across."""
+    import copy
+
+    if len(scores) < 2:
+        raise AssertionError(f"surfaces: {len(scores)} candidates to cut")
+    k = max(range(min(lo, len(scores) - 1), min(hi, len(scores) - 1) + 1),
+            key=lambda i: scores[i - 1] - scores[i])
+    cut = copy.deepcopy(model)
+    cut.thresh = (scores[k - 1] + scores[k]) / 2
+    return cut, k
+
+
+def surfaces_cpu_detector(torch, np, pbd, model, frames, card) -> None:
+    """CPUPartsBasedDetector on the port's native kernels, built here,
+    against the card detector on frame 0's 120x160 corner: gated on
+    tests/test_cpu_detector.py's own model at the tolerance that test
+    holds the JAX pair to (|dscore| < 2e-3, parts within 5e-2), its
+    threshold cut to keep 20-40 candidates. person26 is timed and its
+    largest score difference printed, not gated: at candidates that
+    cross the image border the reference pipeline and the detector can
+    differ by more than 2e-3 on person26, in the JAX package as well."""
+    from partsbaseddetector_tpu_torch import CPUPartsBasedDetector, native
+    from partsbaseddetector_tpu_torch.types import Candidate
+
+    if not native.available():
+        raise AssertionError("surfaces: the native library did not build")
+    small = frames[0][0][:120, :160]
+    m4 = pbd.make_synthetic_model(nparts=4, nmix=2, fsize=(4, 4), sbin=8, interval=2,
+                                  thresh=1.0, seed=40)
+    scores = [c.score for c in Candidate.sort(CPUPartsBasedDetector(m4).detect(small))]
+    m4, k4 = cut_at_gap(m4, scores)
+    want4 = Candidate.sort(CPUPartsBasedDetector(m4).detect(small))
+    got4 = pbd.PartsBasedDetector(m4, max_detections=512, device=DEVICE).detect(small)
+    if len(want4) != k4 or not matched_within(want4, got4, 2e-3, 5e-2):
+        raise AssertionError("surfaces: the CPU detector differs from the card's: "
+                             + difference(got4, want4))
+
+    scores = [c.score for c in Candidate.sort(CPUPartsBasedDetector(model).detect(small))]
+    cut, k = cut_at_gap(model, scores)
+    cpu = CPUPartsBasedDetector(cut)
+    cpu_ms, want = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = Candidate.sort(cpu.detect(small))
+        cpu_ms.append((time.perf_counter() - t0) * 1e3)
+    det = pbd.PartsBasedDetector(cut, max_detections=512, device=DEVICE)
+    got = det.detect(small)
+    card_ms = [timed_detect(torch, det, small) for _ in range(3)]
+    dmax = max(abs(x.score - y.score) for x, y in zip(Candidate.sort(got), want))
+    log("surfaces_cpu_detector", kernels="native (g++ -O3 -march=native -fopenmp)",
+        imsize="120x160", model4_candidates=f"{len(want4)} matched within 2e-3 / 5e-2",
+        person26_candidates=f"cpu {len(want)}, card {len(got)}",
+        person26_max_dscore_best_first=f"{dmax:.3e}",
+        cpu_ms_per_image=",".join(f"{t:.1f}" for t in cpu_ms),
+        card_ms_per_image=",".join(f"{t:.3f}" for t in card_ms), card=f"'{card}'")
+
+
+def surfaces_config_demo(np, pbd, frames, frame0, xml, work, have_yaml, have_pil,
+                         card) -> None:
+    """With PyYAML: build_from_file on examples/conf/config_person.by_parts
+    pointed at the .xml gives the node's frame 0 candidates. With PIL:
+    apps.demo.main on a PNG and its uint16 depth PNG."""
+    from partsbaseddetector_tpu_torch.apps import demo
+    from partsbaseddetector_tpu_torch.apps import pipeline as apps_pipeline
+    from partsbaseddetector_tpu_torch.types import Candidate
+
+    fields = {"yaml": have_yaml, "pil": have_pil}
+    if have_yaml:
+        text = (ROOT / "examples" / "conf" / "config_person.by_parts").read_text()
+        if '"/tmp/person26.npz"' not in text:
+            raise AssertionError("surfaces: config_person.by_parts names another model")
+        cpath = os.path.join(work, "config_person.by_parts")
+        with open(cpath, "w") as fh:
+            fh.write(text.replace('"/tmp/person26.npz"', f'"{xml}"'))
+        node2 = apps_pipeline.build_from_file(cpath, device=DEVICE, buckets_per_octave=2)
+        r = next(node2.process_stream(frames[:1]))
+        if not same_candidates(r.candidates, frame0) or r.image_rgb is None:
+            raise AssertionError("surfaces: build_from_file's node differs")
+        fields["config_node_candidates"] = len(r.candidates)
+    if have_pil:
+        import io
+
+        from PIL import Image
+
+        rgb, depth = frames[0]
+        png, dpng, out = (os.path.join(work, f) for f in ("f0.png", "d0.png", "demo.png"))
+        Image.fromarray(rgb).save(png)
+        Image.fromarray(depth).save(dpng)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = demo.main([xml, png, dpng, "--out", out, "--nms", "0.1",
+                            "--device", DEVICE])
+        det = pbd.PartsBasedDetector(pbd.load_model(xml), device=DEVICE)
+        im = rgb.astype(np.float32)
+        want = Candidate.non_maxima_suppression(
+            im.shape[:2], Candidate.sort(det.detect(im, depth.astype(np.float32) / 1000.0)),
+            0.1)
+        if rc != 0 or not os.path.exists(out) or not buf.getvalue().startswith(
+                f"{len(want)} candidates"):
+            raise AssertionError(f"surfaces: the demo failed: {buf.getvalue()[:200]}")
+        fields["demo_candidates"] = len(want)
+    log("surfaces_config_demo", **fields, card=f"'{card}'")
+
+
+def check_surfaces(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card, have_yaml,
+                   have_pil) -> dict:
+    """The surfaces on person26 at VGA, f32, buckets_per_octave=2: the
+    model files, the stream node and its post stages, messages, eval,
+    visualization, the CPU detector, and (with PyYAML and PIL) the
+    config file and the demo. Returns the kernels' launches over the
+    node's 8 frames."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    model = pbd.make_person_like_model()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        xml = surfaces_files(np, pbd, model, im, work, card)
+        node, frames, results, res3d, frames3d, counts = surfaces_stream(
+            torch, np, pbd, dt_cuda, conv_cuda, tc, im, xml, card)
+        surfaces_messages_eval(np, pbd, model, node, frames, res3d, frames3d, card)
+        surfaces_cpu_detector(torch, np, pbd, model, frames, card)
+        surfaces_config_demo(np, pbd, frames, results[0].candidates, xml, work,
+                             have_yaml, have_pil, card)
+    log("surfaces", seconds=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+    return counts
 
 
 def check_nms(torch, np, pbd, nms, im, card) -> None:
@@ -2051,7 +2512,7 @@ def check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> No
 
 
 def main() -> int:
-    global cuda_ms, device_ms
+    global cuda_ms, device_ms, device_profile
     try:
         import torch
     except ImportError:
@@ -2073,7 +2534,8 @@ def main() -> int:
         from partsbaseddetector_tpu_torch.tools import kernel_variants as variants
         from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
         from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
-        from partsbaseddetector_tpu_torch.utils.profiling import cuda_ms, device_ms
+        from partsbaseddetector_tpu_torch.utils.profiling import (
+            cuda_ms, device_ms, device_profile)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -2122,6 +2584,10 @@ def main() -> int:
     check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card)
     serving = check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)
     check_stream(torch, np, pbd, im, card)
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    have_pil = importlib.util.find_spec("PIL") is not None
+    surf = check_surfaces(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card,
+                          have_yaml, have_pil)
     check_nms(torch, np, pbd, nms, im, card)
     t1_row = check_conv_proto(torch, cp, conv_cuda, harness)
     hybrid = check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card)
@@ -2135,7 +2601,7 @@ def main() -> int:
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:518",
          "also_replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d"], "hybrid_launches": hyb["dt1d"],
-         "mine_launches": mine["dt1d"], **dt_row},
+         "mine_launches": mine["dt1d"], "surfaces_launches": surf["dt1d"], **dt_row},
         # K3's row: the same kernel's x passes (the transposed map, aux),
         # counted where they launch
         {"name": "dt1d_axis2_xpass", "route": "cuda",
@@ -2143,13 +2609,14 @@ def main() -> int:
          "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d_aux"], "hybrid_launches": hyb["dt1d_aux"],
-         "mine_launches": mine["dt1d_aux"], **xpass_row},
+         "mine_launches": mine["dt1d_aux"], "surfaces_launches": surf["dt1d_aux"],
+         **xpass_row},
         {"name": "conv3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/conv_pallas.py:101",
          "launches": counts["conv"], "hybrid_launches": hyb["conv"],
-         "mine_launches": mine["conv"], **conv_row,
+         "mine_launches": mine["conv"], "surfaces_launches": surf["conv"], **conv_row,
          "table_shape": conv_table},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
@@ -2165,7 +2632,7 @@ def main() -> int:
          "replaces": "tools/transpose_kernel_probe.py:25",
          "launches": serving["counts"]["transpose"],
          "hybrid_launches": hyb["transpose"], "mine_launches": mine["transpose"],
-         **tp_row},
+         "surfaces_launches": surf["transpose"], **tp_row},
         {"name": "conv_proto_3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",

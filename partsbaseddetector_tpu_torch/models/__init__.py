@@ -1,6 +1,8 @@
 """Model layer: canonical part-model container, packed form, its torch
-device copy, the npz serialization, conversion from the JAX package's
-models and their trainable pools, and synthetic model generators."""
+device copy, the npz serialization, the OpenCV FileStorage (XML/YAML)
+and MATLAB (.mat) readers and writers, conversion from the JAX
+package's models and their trainable pools, and synthetic model
+generators."""
 
 from .model import (
     DeviceComponent,
@@ -23,3 +25,5 @@ from .convert import (
     params_from_jax,
     params_to_numpy,
 )
+from .filestorage import FileStorageModel
+from .matlabio import MatlabIOModel

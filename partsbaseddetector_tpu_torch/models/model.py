@@ -441,13 +441,18 @@ def save_model(model: Model, path: str) -> None:
 
 
 def load_model(path: str) -> Model:
-    """Load the canonical .npz format. The OpenCV FileStorage
-    (.xml/.yml/.yaml) and MATLAB (.mat) readers are not ported yet."""
+    """Load from any supported format by extension: .npz (canonical),
+    .xml/.yml/.yaml (OpenCV FileStorage; .yml/.yaml need PyYAML), .mat
+    (MATLAB v5/v7)."""
     lower = path.lower()
-    if lower.endswith((".xml", ".yml", ".yaml", ".mat")):
-        raise NotImplementedError(
-            f"{path}: only .npz models load in the torch port so far"
-        )
+    if lower.endswith((".xml", ".yml", ".yaml")):
+        from .filestorage import FileStorageModel
+
+        return FileStorageModel.read(path)
+    if lower.endswith(".mat"):
+        from .matlabio import MatlabIOModel
+
+        return MatlabIOModel.read(path)
     from .convert import model_from_arrays
 
     with np.load(path, allow_pickle=False) as z:

@@ -20,7 +20,10 @@ in a batch of 8 and on the CPU. T1's
 port (conv_proto) is within 1e-5 * sum|x*w| of its plain version and
 equal to K2 bit for bit at every toh; the hybrid bf16 profile gives the
 CPU path's candidates through K1, K2 and T2, and the QP trainers'
-miner the CPU miner's placements, plain and latent.
+miner the CPU miner's placements, plain and latent. person26 read back
+from .xml and .mat detects as the in-memory model bit for bit, and the
+stream node (apps.stream.DetectionStream.process_stream) gives sorted,
+NMS'd detect's candidates bit for bit.
 """
 
 import os
@@ -739,3 +742,61 @@ def test_cuda_miner_warns_on_the_shared_filter_route(cuda):
     with pytest.warns(UserWarning, match="on the host"):
         got = miner.detect(im, thresh=-1e8, part_boxes=boxes, overlap=0.3)
     assert len(got) == 1 and miner._plans == {}
+
+
+def test_xml_loaded_person26_detects_as_the_in_memory_model(cuda, tmp_path):
+    """person26 written to .xml (and .mat) and read back detects on the
+    card bit for bit as the in-memory model."""
+    from partsbaseddetector_tpu_torch import (
+        PartsBasedDetector,
+        load_model,
+        make_person_like_model,
+    )
+    from partsbaseddetector_tpu_torch.models import FileStorageModel, MatlabIOModel
+
+    model = make_person_like_model()
+    im = (np.random.RandomState(12).rand(240, 320, 3) * 255).astype(np.uint8)
+    want = PartsBasedDetector(model, buckets_per_octave=2, device=cuda).detect(im)
+    assert want
+    for fmt, writer in (("xml", FileStorageModel), ("mat", MatlabIOModel)):
+        path = str(tmp_path / f"p.{fmt}")
+        writer.write(model, path)
+        got = PartsBasedDetector(load_model(path), buckets_per_octave=2,
+                                 device=cuda).detect(im)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.score == w.score and g.component == w.component
+            assert np.array_equal(g.parts, w.parts)
+            assert np.array_equal(g.mixtures, w.mixtures)
+
+
+def test_process_stream_equals_sorted_nms_detect(cuda, tmp_path):
+    """apps.stream.DetectionStream.process_stream on two RGB-D VGA frames
+    (uint16 depth) gives sorted, NMS'd detect's candidates bit for bit,
+    through K1, K2 and T2."""
+    from partsbaseddetector_tpu_torch import make_person_like_model
+    from partsbaseddetector_tpu_torch.apps.pipeline import PipelineConfig, build
+    from partsbaseddetector_tpu_torch.models import FileStorageModel
+    from partsbaseddetector_tpu_torch.ops import conv_cuda, dt_cuda
+    from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+    from partsbaseddetector_tpu_torch.types import Candidate
+
+    path = str(tmp_path / "p.xml")
+    FileStorageModel.write(make_person_like_model(), path)
+    node = build(PipelineConfig(model_file=path, max_overlap=0.1,
+                                camera=dict(fx=525.0, fy=525.0, cx=319.5, cy=239.5)),
+                 device=cuda, buckets_per_octave=2)
+    rng = np.random.RandomState(13)
+    frames = [((rng.rand(480, 640, 3) * 255).astype(np.uint8),
+               ((1.0 + rng.rand(480, 640)) * 1000.0).astype(np.uint16)) for _ in range(2)]
+    before = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    results = list(node.process_stream(frames, lookahead=2, workers=2))
+    after = (dt_cuda.launches, conv_cuda.launches, tc.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert len(results) == 2
+    for r, (rgb, depth) in zip(results, frames):
+        want = Candidate.non_maxima_suppression(
+            rgb.shape[:2], Candidate.sort(node.detector.detect(rgb, depth)), 0.1)
+        assert len(r.candidates) == len(want) > 0
+        for g, w in zip(r.candidates, want):
+            assert g.score == w.score and np.array_equal(g.parts, w.parts)
