@@ -155,11 +155,36 @@ script exits non-zero without the final line):
  19. hybrid_serving  detect_many(microbatch=8) with bf16 over config 4's 64
                  frames: launches, images/s beside f32 in turns, the first
                  8 frames equal to per-frame detect
+ 20. parallel    parallel/ at world size 1 over NCCL (mesh and first
+                 collective timed): person26 VGA, microbatch 8 over 8
+                 frames, both engines, batched_detect_fn = detect_batch_fn
+                 bit for bit, launches, ms/image of both in turns; the
+                 sharded train step (batch 8 at 240x320, two steps) =
+                 make_train_step within rtol 1e-4, atol 1e-5, K1 and K4
+                 launched, ms/step of both in turns
+ 21. bf16_plain  bf16 without the re-rank, person26 VGA: K1, K3, T2
+                 launched, K2 not; deterministic; ms/image in turns with
+                 f32 and the hybrid; the bf16 pyramid batch-invariant
+                 (B=1 against B=8); the CPU path's candidates at 120x160
+                 by box (80%, scores within 0.05); microbatch-8 images/s
+ 22. bf16_mine   TPUMiner(dtype=bfloat16) at 480x640: K1, K3, T2 and no
+                 K2; deterministic; placements shared with the f32
+                 miner's (its top-1 among them) and the CPU bf16 miner's
+                 at 120x160 (80%); ms per mine beside f32 in turns
+ 23. fourier_train  two Fourier-engine train steps on person26 (batch 2,
+                 120x160): K1 and K4, no K2; losses and gradients within
+                 5e-3 of the spatial engine's, within rtol/atol 1e-4 of the
+                 CPU's; ms/step of both engines at batch 8, 240x320
+ 24. examples    the port's examples (partsbaseddetector_tpu_torch/
+                 examples/) on the card: the RGB-D serving demo and the
+                 training demo --fast, their launches and seconds
 
 The second-to-last lines are the kernel table (one JSON object; the K1,
 K3, K2 and T2 rows carry hybrid_launches, mine_launches, a plain
 mine's launches, and surfaces_launches, the stream node's over its 8
-frames) and the card's `nvidia-smi` name and power limit; the last line is
+frames, and the launches of phases 20-24 where the kernel runs there:
+parallel_launches, bf16_plain_launches, bf16_mine_launches,
+fourier_train_launches, examples_launches) and the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits 1 and prints no result.
 """
@@ -187,6 +212,9 @@ DEVICE = "cuda"
 # the mine phase's frames: the plain and latent mines, and the QP round
 MINE_IMSIZE = (480, 640)
 QP_IMSIZE = (240, 320)
+# the timed train batches of the parallel and fourier_train phases (the
+# train phase's set-up): image size and batch
+TRAIN_BATCH = ((240, 320), 8)
 # the H100 SXM's published peaks at its 700 W limit: HBM3 bytes/s, FP32
 # (non-tensor-core) operations/s and dense TF32 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -2511,6 +2539,406 @@ def check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> No
         mb8_peak_device_bytes=peak, card=f"'{card}'")
 
 
+def require_launches(phase: str, counts: dict, launched=(), zero=()) -> None:
+    """Fail the phase unless every kernel in `launched` ran at least
+    once and none in `zero` ran."""
+    if any(counts[k] <= 0 for k in launched) or any(counts[k] for k in zero):
+        raise AssertionError(f"{phase}: launches {counts}, wanted >0 for "
+                             f"{list(launched)} and 0 for {list(zero)}")
+
+
+def vga_frames(np, im, n: int):
+    """n distinct uint8 frames: the VGA frame shifted by 0..n-1 grey
+    levels (config 4's frames)."""
+    return [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8) for i in range(n)]
+
+
+def check_parallel(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc, im, card) -> dict:
+    """parallel/ at world size 1 over NCCL (one card: NCCL refuses two
+    ranks on one GPU; several ranks are rehearsed as gloo runs in
+    tests/test_torch_parallel.py). The NCCL set-up seconds (the mesh and
+    the first collective); person26 at 480x640, buckets_per_octave=2,
+    microbatch 8 over 8 frames, both engines: batched_detect_fn's
+    gathered outputs equal detect_batch_fn's bit for bit, K1, K3 and T2
+    (and K2 for the spatial engine) launched, ms/image of both in turns
+    (medians of 5); then sharded_train_step on the train phase's batch
+    (8 at 240x320, non-latent as the JAX sharded step) for two steps in
+    turns with make_train_step: loss and pools within rtol 1e-4,
+    atol 1e-5, K1 and K4 launched, ms/step of both. Any collective
+    failure raises."""
+    import torch.distributed as dist
+
+    from partsbaseddetector_tpu_torch import parallel
+    from partsbaseddetector_tpu_torch.models import pack_model
+
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(device=DEVICE)
+    probe = torch.ones(1, device=DEVICE)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    try:
+        if float(probe) != 1.0 or mesh.shape != (1, 1):
+            raise AssertionError(f"parallel: world-1 all_reduce gave {float(probe)}")
+        model = pbd.make_person_like_model()
+        imsize = tuple(im.shape[:2])
+        frames = torch.as_tensor(np.stack(vga_frames(np, im, 8)), device=DEVICE)
+        out = {"setup_s": setup_s}
+        for engine in ("spatial", "fourier"):
+            det = pbd.PartsBasedDetector(model, buckets_per_octave=2,
+                                         conv_engine=engine, device=DEVICE)
+            fn = parallel.batched_detect_fn(det, imsize, mesh)
+            batch_fn = det.detect_batch_fn(imsize, 8)
+            want = batch_fn(frames)  # warm-up: plan, allocator
+            fn(frames)
+            torch.cuda.synchronize()
+            zero_counts(dt_cuda, conv_cuda, tc)
+            got = fn(frames)
+            torch.cuda.synchronize()
+            counts = mine_counts(dt_cuda, conv_cuda, tc)
+            require_launches(f"parallel_{engine}", counts,
+                             ("dt1d", "dt1d_aux", "transpose")
+                             + (("conv",) if engine == "spatial" else ()))
+            for g, w in zip(got, want):
+                if not torch.equal(g.full_tensor(), w):
+                    raise AssertionError(f"parallel: {engine} batched detect differs "
+                                         "from detect_batch_fn")
+            par, one = [], []
+            for _ in range(5):
+                par.append(timed_run(torch, lambda: fn(frames))[1] * 1e3 / 8)
+                one.append(timed_run(torch, lambda: batch_fn(frames))[1] * 1e3 / 8)
+            out[engine] = {"counts": counts, "ms": statistics.median(par),
+                           "plain_ms": statistics.median(one)}
+            log(f"parallel_{engine}", world=1, backend=backend, mesh="1x1",
+                nccl_setup_s=f"{setup_s:.3f}", frames="8 uint8 VGA", microbatch=8,
+                equal_to_detect_batch_fn=True,
+                launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+                ms_per_image_median=f"{out[engine]['ms']:.3f}",
+                detect_batch_fn_ms_per_image_median=f"{out[engine]['plain_ms']:.3f}",
+                ms_all=",".join(f"{t:.3f}" for t in par),
+                detect_batch_fn_ms_all=",".join(f"{t:.3f}" for t in one), card=f"'{card}'")
+
+        packed = pack_model(model)
+        timsize, tbatch = TRAIN_BATCH
+        rng = np.random.RandomState(0)
+        imgs = torch.as_tensor((rng.rand(tbatch, *timsize, 3) * 255.0).astype(np.float32),
+                               device=DEVICE)
+        labels = np.array([1.0, -1.0] * (tbatch // 2), np.float32)
+        step, make_opt, shard = parallel.sharded_train_step(packed, timsize, mesh)
+        ref_step, ref_opt = pbd_train.make_train_step(packed, timsize)
+        params = shard(pbd_train.model_params(model, DEVICE))
+        opt = make_opt(params.values())
+        ref = pbd_train.model_params(model, DEVICE)
+        ropt = ref_opt(ref.values())
+        zero_counts(dt_cuda, conv_cuda, tc)
+        dt_cuda.bwd_launches = 0
+        tcounts = {"dt1d": 0, "dt1d_bwd": 0, "conv": 0}
+        losses, rlosses, secs, rsecs = [], [], [], []
+        for _ in range(2):
+            (_, _, rl), rs = timed_run(torch, lambda: ref_step(ref, ropt, imgs, labels))
+            before = (dt_cuda.launches, dt_cuda.bwd_launches, conv_cuda.launches)
+            (_, _, loss), ss = timed_run(torch, lambda: step(params, opt, imgs, labels))
+            for k, b, a in zip(tcounts, before, (dt_cuda.launches, dt_cuda.bwd_launches,
+                                                 conv_cuda.launches)):
+                tcounts[k] += a - b
+            losses.append(float(loss))
+            rlosses.append(float(rl))
+            secs.append(ss)
+            rsecs.append(rs)
+        require_launches("parallel_train", tcounts, ("dt1d", "dt1d_bwd"))
+        for a, b in zip(losses, rlosses):
+            if abs(a - b) > TRAIN_TOL["rtol"] * abs(b) or not math.isfinite(a):
+                raise AssertionError(f"parallel_train: loss {a} against {b}")
+        worst = {}
+        for k, v in shard.gather(params).items():
+            y = ref[k].detach()
+            err = (v - y).abs()
+            lim = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * y.abs()
+            worst[k] = (err / lim).max().item()
+            if not bool((err <= lim).all()):
+                raise AssertionError(f"parallel_train: pools differ in {k} (x{worst[k]:.3g})")
+        out["train"] = {"counts": tcounts, "ms": statistics.median(secs) * 1e3,
+                        "plain_ms": statistics.median(rsecs) * 1e3}
+        log("parallel_train", world=1, backend=backend, mesh="1x1", model="person26",
+            imsize="x".join(map(str, timsize)), batch=tbatch, steps=2, latent=False,
+            launches=",".join(f"{k}:{v}" for k, v in tcounts.items()),
+            losses=",".join(f"{x:.6f}" for x in losses),
+            make_train_step_losses=",".join(f"{x:.6f}" for x in rlosses),
+            max_err_over_bound=",".join(f"{k}:{v:.3g}" for k, v in worst.items()),
+            ms_per_step=",".join(f"{t * 1e3:.3f}" for t in secs),
+            make_train_step_ms_per_step=",".join(f"{t * 1e3:.3f}" for t in rsecs),
+            card=f"'{card}'")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def check_bf16_plain(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
+    """bf16 without the f32 re-rank on person26 VGA, buckets_per_octave=2:
+    K1, K3 and T2 launched and K2 not (the conv is cuDNN's bf16 conv2d,
+    the JAX package's lax.conv), deterministic, ms/image in turns with
+    the f32 detector `det` and the hybrid (medians of 7); the bf16
+    pyramid of 8 frames alone and in one batch bit-identical; the CPU
+    path's candidates at 120x160 (thresh -1e9, 32 detections) matched by
+    box (bench.py's _match_boxes, 0.75 px): at least 80% of them, scores
+    within 0.05; microbatch-8 images/s over 32 frames."""
+    from partsbaseddetector_tpu_torch.models.model import pack_model
+    from partsbaseddetector_tpu_torch.ops import pyramid
+
+    bf16 = torch.bfloat16
+    model = pbd.make_person_like_model()
+    kw = dict(buckets_per_octave=2, device=DEVICE)
+    pdet = pbd.PartsBasedDetector(model, dtype=bf16, rerank_fp32=False, **kw)
+    hdet = pbd.PartsBasedDetector(model, dtype=bf16, **kw)
+    pdet.detect(im)  # warm-up: plan, allocator
+    hdet.detect(im)
+    zero_counts(dt_cuda, conv_cuda, tc)
+    first = pdet.detect(im)
+    torch.cuda.synchronize()
+    counts = mine_counts(dt_cuda, conv_cuda, tc)
+    require_launches("bf16_plain", counts, ("dt1d", "dt1d_aux", "transpose"), ("conv",))
+    if not first or not all(np.isfinite(c.score) and np.isfinite(c.parts).all()
+                            and c.parts.shape == (26, 4) for c in first):
+        raise AssertionError("bf16_plain: no candidates, or malformed ones")
+    if not same_candidates(first, pdet.detect(im)):
+        raise AssertionError("bf16_plain: two runs differ")
+    plain, hy, f32 = [], [], []
+    for _ in range(7):
+        f32.append(timed_detect(torch, det, im))
+        hy.append(timed_detect(torch, hdet, im))
+        plain.append(timed_detect(torch, pdet, im))
+
+    frames = vga_frames(np, im, 32)
+    packed = pack_model(model)
+    fh, fw = packed.filters.shape[1:3]
+    plan = pyramid.build_plan(im.shape[:2], packed.spec, fh, fw, buckets_per_octave=2)
+    batch = torch.as_tensor(np.stack(frames[:8]), device=DEVICE).to(bf16)
+    together = pyramid.build_pyramid_features(batch, plan, packed.spec)
+    for i in (0, 7):
+        alone = pyramid.build_pyramid_features(batch[i : i + 1], plan, packed.spec)
+        if not all(torch.equal(x[0], y[i]) for x, y in zip(alone, together)):
+            raise AssertionError(f"bf16_plain: frame {i}'s bf16 features differ alone "
+                                 "and in a batch of 8")
+
+    lo = pbd.make_person_like_model()
+    lo.thresh = -1e9
+    small = im[:120, :160]
+    kws = dict(max_detections=32, buckets_per_octave=2, dtype=bf16, rerank_fp32=False)
+    got = pbd.PartsBasedDetector(lo, device=DEVICE, **kws).detect_dense(small)
+    want = pbd.PartsBasedDetector(lo, device="cpu", **kws).detect_dense(small)
+    nq, nm, dmax = match_boxes(want.boxes, want.scores, want.valid,
+                               got.boxes, got.scores, got.valid)
+    if nm < max(1, int(0.8 * nq)) or dmax > 0.05:
+        raise AssertionError(f"bf16_plain: CPU match at 120x160 {nm}/{nq}, max dscore {dmax}")
+
+    pdet.detect_many(frames[:8], microbatch=8)  # warm-up
+    ips = [32 / timed_run(torch, lambda: pdet.detect_many(frames, microbatch=8))[1]
+           for _ in range(2)]
+    ms = statistics.median(plain)
+    log("bf16_plain", imsize="x".join(map(str, im.shape[:2])), buckets_per_octave=2,
+        dtype="bfloat16", rerank_fp32=False, candidates=len(first),
+        top_score=f"{first[0].score:.4f}", deterministic=True,
+        launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+        ms_per_image_median=f"{ms:.3f}",
+        hybrid_ms_per_image_median=f"{statistics.median(hy):.3f}",
+        f32_ms_per_image_median=f"{statistics.median(f32):.3f}",
+        ms_all=",".join(f"{t:.3f}" for t in plain),
+        pyramid_batch_invariant_b1_b8=True,
+        cpu_match_120x160=f"{nm}/{nq} by box, max dscore {dmax:.3e}",
+        microbatch8_images_per_s=",".join(f"{t:.3f}" for t in ips), card=f"'{card}'")
+    return {"counts": counts, "ms": ms}
+
+
+def root_key(d) -> tuple:
+    """A mined placement's root: level, component and the root's grid
+    coordinates (a 26-part placement's other parts and mixtures sit on
+    bf16 score plateaus: at person26's scores, about 33, bf16 spacing is
+    0.25)."""
+    return (d["level"], d["component"], int(d["xs"][0]), int(d["ys"][0]))
+
+
+def check_bf16_mine(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
+    """TPUMiner(dtype=bfloat16) on person26 at MINE_IMSIZE, max_det 64:
+    K1, K3 and T2 launched and K2 not, deterministic; its root
+    placements (root_key) against the f32 miner's: the f32 top-1's root
+    among them and at least a quarter shared (36 of 64 on the CPU at
+    120x160); the CPU bf16 miner's at 120x160: at least 80% shared, and
+    the whole placements shared reported; ms per mine of both miners in
+    turns (medians of 5)."""
+    from partsbaseddetector_tpu_torch.train.detect_tpu import TPUMiner
+
+    model = pbd.make_person_like_model()
+    frame = np.ascontiguousarray(im[: MINE_IMSIZE[0], : MINE_IMSIZE[1]])
+    m16 = TPUMiner(model, max_det=64, dtype=torch.bfloat16, device=DEVICE)
+    m32 = TPUMiner(model, max_det=64, device=DEVICE)
+    timed_mine(torch, m16, frame)  # warm-up: plans, pools
+    timed_mine(torch, m32, frame)
+    zero_counts(dt_cuda, conv_cuda, tc)
+    d16, _ = timed_mine(torch, m16, frame)
+    counts = mine_counts(dt_cuda, conv_cuda, tc)
+    require_launches("bf16_mine", counts, ("dt1d", "dt1d_aux", "transpose"), ("conv",))
+    if not d16 or not same_placements(np, d16, timed_mine(torch, m16, frame)[0]):
+        raise AssertionError("bf16_mine: no placements, or two mines differ")
+    t16, t32 = [], []
+    for _ in range(5):
+        t32.append(timed_mine(torch, m32, frame)[1])
+        t16.append(timed_mine(torch, m16, frame)[1])
+    d32 = m32.detect(frame, thresh=-1e8)
+    k16 = {root_key(d) for d in d16}
+    shared = len(k16 & {root_key(d) for d in d32})
+    top1 = root_key(d32[0]) in k16
+    if not top1 or shared < len(d32) // 4:
+        raise AssertionError(f"bf16_mine: f32 top-1 found {top1}, {shared}/{len(d32)} shared")
+    small = np.ascontiguousarray(frame[:120, :160])
+    got = TPUMiner(model, max_det=32, dtype=torch.bfloat16, device=DEVICE).detect(
+        small, thresh=-1e8)
+    want = TPUMiner(model, max_det=32, dtype=torch.bfloat16, device="cpu").detect(
+        small, thresh=-1e8)
+    cpu_shared = len({root_key(d) for d in got} & {root_key(d) for d in want})
+    whole = sum(any(same_placements(np, [g], [w], math.inf, math.inf) for w in want)
+                for g in got)
+    if cpu_shared < int(0.8 * len(want)):
+        raise AssertionError(f"bf16_mine: {cpu_shared}/{len(want)} placements shared "
+                             "with the CPU bf16 miner at 120x160")
+    ms = statistics.median(t16)
+    log("bf16_mine", imsize="x".join(map(str, frame.shape[:2])), max_det=64,
+        placements=len(d16), deterministic=True,
+        launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+        roots_shared_with_f32=f"{shared}/{len(d32)}", f32_top1_root_found=top1,
+        cpu_roots_shared_120x160=f"{cpu_shared}/{len(want)}",
+        cpu_placements_shared_120x160=f"{whole}/{len(want)}",
+        ms_per_mine_median=f"{ms:.3f}", f32_ms_per_mine_median=f"{statistics.median(t32):.3f}",
+        ms_all=",".join(f"{t:.3f}" for t in t16), card=f"'{card}'")
+    return {"counts": counts, "ms": ms}
+
+
+def engine_steps(torch, np, pbd_train, model, packed, imsize, batch, device, engine,
+                 nsteps, seed=0):
+    """nsteps non-latent SGD steps (LatentHingeLoss.value_and_grad, the
+    optimizer step, the defs projection) with `engine`'s conv; returns
+    (losses, each step's gradients, the pools, seconds per step)."""
+    from partsbaseddetector_tpu_torch.train.sgd import LatentHingeLoss, project_defs
+
+    rng = np.random.RandomState(seed)
+    imgs = torch.as_tensor((rng.rand(batch, *imsize, 3) * 255.0).astype(np.float32),
+                           device=device)
+    labels = np.array([1.0, -1.0] * (batch // 2), np.float32)
+    loss_fn = LatentHingeLoss(packed, imsize, 1e-4, 1.0, latent=False, engine=engine)
+    params = pbd_train.model_params(model, device)
+    opt = pbd_train.sgd_momentum(params.values())
+    losses, grads, secs = [], [], []
+    for _ in range(nsteps):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = loss_fn.value_and_grad(params, imgs, labels)
+        grads.append({k: v.detach().cpu().clone() for k, v in g.items()})
+        opt.step()
+        project_defs(params)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return losses, grads, params, secs
+
+
+def check_fourier_train(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc, card) -> dict:
+    """Training with the Fourier engine (root_scores(params,
+    engine="fourier"): the filters' spectra from the traced filters,
+    cuFFT under autograd) on person26, two steps at batch 2, 120x160:
+    K1 and K4 launched and K2 not; losses and each step's gradients
+    within 5e-3 * max(1, |x|) of the spatial engine's on the card, and
+    within rtol 1e-4, atol 1e-4 of the CPU path's Fourier steps (the
+    FFT libraries round differently: tests/test_torch_fourier.py's bound
+    against jnp.fft); then ms/step of both engines at batch 8, 240x320,
+    in turns."""
+    from partsbaseddetector_tpu_torch.models import pack_model
+
+    model = pbd.make_person_like_model()
+    packed = pack_model(model)
+    small = (120, 160)
+    zero_counts(dt_cuda, conv_cuda, tc)
+    dt_cuda.bwd_launches = 0
+    fl, fg, _, _ = engine_steps(torch, np, pbd_train, model, packed, small, 2, DEVICE,
+                                "fourier", 2)
+    counts = {"dt1d": dt_cuda.launches, "dt1d_bwd": dt_cuda.bwd_launches,
+              "conv": conv_cuda.launches, "transpose": tc.launches}
+    require_launches("fourier_train", counts, ("dt1d", "dt1d_bwd", "transpose"), ("conv",))
+    sl, sg, _, _ = engine_steps(torch, np, pbd_train, model, packed, small, 2, DEVICE,
+                                "spatial", 2)
+    cl, cg, _, _ = engine_steps(torch, np, pbd_train, model, packed, small, 2, "cpu",
+                                "fourier", 2)
+
+    def worst(a, b, rtol, atol):
+        return max(float(((x - y).abs() / (atol + rtol * y.abs())).max())
+                   for x, y in zip(a, b))
+
+    vs_spatial = max(worst([torch.tensor(fl)], [torch.tensor(sl)], 5e-3, 5e-3),
+                     *(worst([g[k] for g in fg], [g[k] for g in sg], 5e-3, 5e-3)
+                       for k in fg[0]))
+    vs_cpu = max(worst([torch.tensor(fl)], [torch.tensor(cl)], 1e-4, 1e-4),
+                 *(worst([g[k] for g in fg], [g[k] for g in cg], 1e-4, 1e-4)
+                   for k in fg[0]))
+    if not all(math.isfinite(x) for x in fl) or vs_spatial > 1 or vs_cpu > 1:
+        raise AssertionError(f"fourier_train: error over bound {vs_spatial:.3g} against "
+                             f"spatial, {vs_cpu:.3g} against the CPU")
+    (big, nbig), fsecs, ssecs = TRAIN_BATCH, [], []
+    for _ in range(2):
+        ssecs += engine_steps(torch, np, pbd_train, model, packed, big, nbig, DEVICE,
+                              "spatial", 1)[3]
+        fsecs += engine_steps(torch, np, pbd_train, model, packed, big, nbig, DEVICE,
+                              "fourier", 1)[3]
+    ms = statistics.median(fsecs) * 1e3
+    log("fourier_train", model="person26", imsize="120x160", batch=2, steps=2,
+        launches=",".join(f"{k}:{v}" for k, v in counts.items()),
+        losses=",".join(f"{x:.6f}" for x in fl),
+        spatial_losses=",".join(f"{x:.6f}" for x in sl),
+        cpu_losses=",".join(f"{x:.6f}" for x in cl),
+        err_over_bound_vs_spatial=f"{vs_spatial:.3g}", err_over_bound_vs_cpu=f"{vs_cpu:.3g}",
+        timed="x".join(map(str, big)) + f" batch {nbig}",
+        ms_per_step=",".join(f"{t * 1e3:.3f}" for t in fsecs),
+        spatial_ms_per_step=",".join(f"{t * 1e3:.3f}" for t in ssecs),
+        card=f"'{card}'")
+    return {"counts": counts, "ms": ms}
+
+
+def check_examples(torch, np, dt_cuda, conv_cuda, tc, card) -> dict:
+    """The port's two examples on the card at their small sizes, their
+    output kept off this script's: the RGB-D serving demo (3 synchronized
+    180x240 frames, K1, K2 and T2 launched, candidates and poses found)
+    and the training demo with --fast (its miner on the card: K1 and K2
+    launched; held-out PCK@0.5 at least 0.5 for every part)."""
+    import io
+
+    from partsbaseddetector_tpu_torch.examples import rgbd_serving_demo, training_demo
+
+    zero_counts(dt_cuda, conv_cuda, tc)
+    with contextlib.redirect_stdout(io.StringIO()) as rgbd_out:
+        frames, rgbd_s = timed_run(torch, lambda: rgbd_serving_demo.main(["--device", DEVICE]))
+    rgbd = mine_counts(dt_cuda, conv_cuda, tc)
+    require_launches("examples_rgbd", rgbd, ("dt1d", "conv", "transpose"))
+    ncand = [len(f.candidates) for f in frames]
+    if len(frames) != 3 or not sum(ncand):
+        raise AssertionError(f"examples: the RGB-D demo gave {ncand} candidates")
+    zero_counts(dt_cuda, conv_cuda, tc)
+    with contextlib.redirect_stdout(io.StringIO()) as train_out:
+        (model, pck), train_s = timed_run(
+            torch, lambda: training_demo.main(["--fast", "--device", DEVICE]))
+    train = mine_counts(dt_cuda, conv_cuda, tc)
+    require_launches("examples_training", train, ("dt1d", "conv"))
+    model.validate()
+    if float(np.min(pck)) < 0.5:
+        raise AssertionError(f"examples: the training demo's PCK is {pck}")
+    log("examples", rgbd_serving_demo=f"{rgbd_s:.3f}s", rgbd_candidates=ncand,
+        rgbd_launches=",".join(f"{k}:{v}" for k, v in rgbd.items()),
+        rgbd_lines=len(rgbd_out.getvalue().splitlines()),
+        training_demo=f"{train_s:.3f}s", training_pck=",".join(f"{x:.3f}" for x in pck),
+        training_launches=",".join(f"{k}:{v}" for k, v in train.items()),
+        training_lines=len(train_out.getvalue().splitlines()), card=f"'{card}'")
+    return {"rgbd": rgbd, "training": train}
+
+
 def main() -> int:
     global cuda_ms, device_ms, device_profile
     try:
@@ -2593,6 +3021,14 @@ def main() -> int:
     hybrid = check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card)
     check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)
     hyb = hybrid["counts"]
+    par = check_parallel(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc, im, card)
+    plain16 = check_bf16_plain(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card)["counts"]
+    mine16 = check_bf16_mine(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)["counts"]
+    ftrain = check_fourier_train(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc,
+                                 card)["counts"]
+    ex = check_examples(torch, np, dt_cuda, conv_cuda, tc, card)
+    ps, pf, pt = par["spatial"]["counts"], par["fourier"]["counts"], par["train"]["counts"]
+    exr, ext = ex["rgbd"], ex["training"]
 
     table = {"kernels": [
         {"name": "dt1d_axis2", "route": "cuda",
@@ -2601,7 +3037,12 @@ def main() -> int:
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:518",
          "also_replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d"], "hybrid_launches": hyb["dt1d"],
-         "mine_launches": mine["dt1d"], "surfaces_launches": surf["dt1d"], **dt_row},
+         "mine_launches": mine["dt1d"], "surfaces_launches": surf["dt1d"],
+         "parallel_launches": {"spatial": ps["dt1d"], "fourier": pf["dt1d"],
+                               "train": pt["dt1d"]},
+         "bf16_plain_launches": plain16["dt1d"], "bf16_mine_launches": mine16["dt1d"],
+         "fourier_train_launches": ftrain["dt1d"],
+         "examples_launches": {"rgbd": exr["dt1d"], "training": ext["dt1d"]}, **dt_row},
         # K3's row: the same kernel's x passes (the transposed map, aux),
         # counted where they launch
         {"name": "dt1d_axis2_xpass", "route": "cuda",
@@ -2610,18 +3051,28 @@ def main() -> int:
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:75",
          "launches": counts["dt1d_aux"], "hybrid_launches": hyb["dt1d_aux"],
          "mine_launches": mine["dt1d_aux"], "surfaces_launches": surf["dt1d_aux"],
+         "parallel_launches": {"spatial": ps["dt1d_aux"], "fourier": pf["dt1d_aux"]},
+         "bf16_plain_launches": plain16["dt1d_aux"],
+         "bf16_mine_launches": mine16["dt1d_aux"],
+         "examples_launches": {"rgbd": exr["dt1d_aux"], "training": ext["dt1d_aux"]},
          **xpass_row},
         {"name": "conv3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/conv_pallas.py:101",
          "launches": counts["conv"], "hybrid_launches": hyb["conv"],
-         "mine_launches": mine["conv"], "surfaces_launches": surf["conv"], **conv_row,
+         "mine_launches": mine["conv"], "surfaces_launches": surf["conv"],
+         "parallel_launches": {"spatial": ps["conv"], "fourier": pf["conv"],
+                               "train": pt["conv"]},
+         "bf16_plain_launches": plain16["conv"], "bf16_mine_launches": mine16["conv"],
+         "fourier_train_launches": ftrain["conv"],
+         "examples_launches": {"rgbd": exr["conv"], "training": ext["conv"]}, **conv_row,
          "table_shape": conv_table},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:809",
-         "launches": train["launches"], **bwd_row},
+         "launches": train["launches"], "parallel_launches": {"train": pt["dt1d_bwd"]},
+         "fourier_train_launches": ftrain["dt1d_bwd"], **bwd_row},
         {"name": "dt1d_window_axis2", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_window.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
@@ -2632,7 +3083,13 @@ def main() -> int:
          "replaces": "tools/transpose_kernel_probe.py:25",
          "launches": serving["counts"]["transpose"],
          "hybrid_launches": hyb["transpose"], "mine_launches": mine["transpose"],
-         "surfaces_launches": surf["transpose"], **tp_row},
+         "surfaces_launches": surf["transpose"],
+         "parallel_launches": {"spatial": ps["transpose"], "fourier": pf["transpose"]},
+         "bf16_plain_launches": plain16["transpose"],
+         "bf16_mine_launches": mine16["transpose"],
+         "fourier_train_launches": ftrain["transpose"],
+         "examples_launches": {"rgbd": exr["transpose"], "training": ext["transpose"]},
+         **tp_row},
         {"name": "conv_proto_3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",

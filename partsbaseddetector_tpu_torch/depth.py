@@ -2,9 +2,10 @@
 response gating, 3-D bounding boxes (Rect3), depth-consistency
 rescoring.
 
-A NumPy-only copy of `partsbaseddetector_tpu/depth.py` for the torch
-port, over the port's own PackedModel and Candidate; only the native
-C++ median helper is left out.
+A copy of `partsbaseddetector_tpu/depth.py` for the torch port, over
+the port's own PackedModel and Candidate, in NumPy; the box medians of
+2-D float32 maps take the port's native C++ helper when it builds
+(`native.box_medians`), as the JAX package's copy does.
 
 Capabilities of the reference's depth pathway, including the parts it
 left incomplete (SURVEY.md §7):
@@ -110,12 +111,17 @@ def _median_depth(depth: np.ndarray, box) -> float:
 
 
 def _batch_medians(depth: np.ndarray, boxes: List) -> np.ndarray:
-    """Medians for many boxes in one call (the JAX package's copy of
-    this module hands float32 maps to its native C++ helper, which
-    computes the identical nth_element-at-n/2 value; this copy stays
-    NumPy only)."""
+    """Medians for many boxes in one call: 2-D float32 maps go to the
+    native helper (`native.box_medians`, the identical nth_element-at-n/2
+    value for every box in one pass) when it is available; every other
+    case takes the NumPy loop."""
     if not len(boxes):
         return np.zeros(0, dtype=np.float64)
+    if depth.ndim == 2 and depth.dtype == np.float32:
+        from . import native
+
+        if native.available():
+            return native.box_medians(depth, np.asarray(boxes, np.float64))
     return np.array([_median_depth(depth, b) for b in boxes], dtype=np.float64)
 
 

@@ -134,7 +134,13 @@ class PartsBasedDetector:
           which placements are found may differ from the f32 profile at
           near-ties.
       rerank_fp32: the f32 re-score and re-rank; default on for bf16,
-          off for f32 (where it reproduces the DP's scores).
+          off for f32 (where it reproduces the DP's scores). bf16 with
+          rerank_fp32=False is the JAX package's plain bf16 profile:
+          float frames travel in bf16, the pyramid and HOG run in bf16,
+          the conv is the library's bf16 conv2d (the JAX package's
+          lax.conv; its Pallas conv takes f32 only), the DP runs in bf16
+          with the DTs widened to f32, and the DP's scores and bf16 boxes
+          are the output: no re-score, in every serving API.
 
     Constructing a detector turns off TF32 for both cuBLAS matmuls and
     cuDNN (`torch.backends.cuda.matmul.allow_tf32` and
@@ -142,10 +148,7 @@ class PartsBasedDetector:
     reference computes at full f32 precision and TF32 breaks its score
     parity.
 
-    Options of the JAX detector that are not ported raise
-    NotImplementedError: a dtype other than float32 and bfloat16, and
-    bfloat16 with rerank_fp32=False (the JAX package then runs HOG and
-    the conv in bf16 through lax.conv).
+    A dtype other than float32 and bfloat16 raises NotImplementedError.
     """
 
     def __init__(
@@ -174,11 +177,6 @@ class PartsBasedDetector:
             )
         if rerank_fp32 is None:
             rerank_fp32 = dtype != torch.float32
-        if dtype == torch.bfloat16 and not rerank_fp32:
-            raise NotImplementedError(
-                "bfloat16 without the fp32 re-rank (HOG and the conv in "
-                "bf16) is not ported"
-            )
         if border_mode not in ("matlab", "cpp"):
             raise ValueError(f"unknown border mode: {border_mode}")
         self.device = resolve_device(device)
@@ -186,6 +184,10 @@ class PartsBasedDetector:
         torch.backends.cudnn.allow_tf32 = False
         self.dtype = dtype
         self.rerank_fp32 = bool(rerank_fp32)
+        # float frames go up at full precision when the re-rank reads
+        # them in f32, else in the pipeline's dtype (uint8 frames are
+        # exact either way); the pyramid and the conv run in it too
+        self.wire_dtype = torch.float32 if self.rerank_fp32 else dtype
         self.max_detections = int(max_detections)
         self.conv_engine = conv_engine
         self.nms_overlap = None if nms_overlap is None else float(nms_overlap)
@@ -491,6 +493,8 @@ class PartsBasedDetector:
         allocator does not reuse it before the copy's event), so it
         outlives the copy. May run on a worker thread."""
         host = torch.from_numpy(np.ascontiguousarray(arr))
+        if host.is_floating_point():
+            host = host.to(self.wire_dtype)
         if self.device.type != "cuda":
             return _Transfer(host.to(self.device), None, None)
         with torch.cuda.device(self.device):
@@ -761,6 +765,7 @@ class PartsBasedDetector:
             ),
             dtype=self.dtype,
             collect_responses=resps32,
+            conv_dtype=self.wire_dtype,
         )
 
         # box origin: MATLAB subtracts the virtual padding; the C++ demo

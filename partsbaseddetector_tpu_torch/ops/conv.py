@@ -20,6 +20,11 @@ contribute nothing, so the valid correlation of a padded filter is the
 true response on the shared top-left-anchored grid. Rows and columns
 beyond a filter's true valid extent are masked to -inf downstream.
 
+`filter_responses_conv2d` is the library's conv2d in the inputs' dtype,
+the conv of the plain bf16 route (bf16 without the f32 re-rank, and the
+bf16 miner): there the JAX package runs `lax.conv`, because its Pallas
+conv takes f32 only, so no hand kernel lies on that path.
+
 The Fourier engine (`conv_engine="fourier"`) is the port of
 `partsbaseddetector_tpu/ops/conv.py::fft_filter_spectra` and the native
 branch of `filter_responses_fft`: `torch.fft` transforms (cuFFT on the
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def filter_responses(features: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
@@ -50,6 +56,22 @@ def filter_responses(features: torch.Tensor, filters: torch.Tensor) -> torch.Ten
             tap = features[:, i : i + oh, j : j + ow, :].reshape(-1, c)
             out += (tap @ filters[:, i, j, :].T).reshape(s, oh, ow, f)
     return out
+
+
+def filter_responses_conv2d(features: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """filter_responses' contract through torch's conv2d (cuDNN on the
+    card) in the features' dtype: the filters are cast to it. For bf16
+    features this is the JAX package's bf16 `lax.conv`."""
+    if filters.shape[-1] != features.shape[-1]:
+        raise ValueError(
+            f"channel mismatch: features {features.shape[-1]}, "
+            f"filters {filters.shape[-1]}"
+        )
+    out = F.conv2d(
+        features.permute(0, 3, 1, 2),
+        filters.to(features.dtype).permute(0, 3, 1, 2),
+    )
+    return out.permute(0, 2, 3, 1)
 
 
 def split_tf32(x: torch.Tensor):
@@ -131,7 +153,9 @@ def filter_responses_fft(
     (S, C) x (C, F) products per frequency (TF32 must be off, as the
     detector sets it). spectra (optional): fft_filter_spectra's array
     for (H, W), as a tensor on the features' device; without it the
-    filters are transformed here in f32. features may carry a leading
+    filters are transformed here in f32, under autograd when they carry
+    a graph (the training path: gradients reach the filters through the
+    transforms and the products). features may carry a leading
     image axis, (B, S, H, W, C) -> (B, S, oh, ow, F): the spectra are
     broadcast over it, as a batch dimension of the same products, so
     each image's products keep the (S, C) x (C, F) shape, and its

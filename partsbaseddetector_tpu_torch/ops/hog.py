@@ -7,7 +7,9 @@ so the histogram stage is two banded linear maps (the JAX package's two
 matrix products), each summed tap by tap in a fixed order
 (`ops/resize.py::apply_banded`); everything after it is elementwise math,
 slicing and fixed-order sums (`tree_sum`), so no rounding depends on the
-batch, the threads or the device.
+batch, the threads or the device. The square roots are the correctly
+rounded f32 ones on both devices (`sqrt_f32`), and the block norms'
+inverse square roots are 1 / sqrt, a correctly rounded division of them.
 
 Semantics kept from the reference (ops/reference.py::hog):
   - gradients from the color channel with the strongest magnitude,
@@ -94,12 +96,41 @@ def hog_choices(im: torch.Tensor, sbin: int):
 
     # --- orientation snapping: interleave (dot_o, -dot_o) so argmax's
     # first-max rule reproduces the reference's comparison order
-    units = device_constant(_orientation_units, device=dev)
+    # in the image's dtype, as the JAX package's (bf16 dots for bf16)
+    units = device_constant(_orientation_units, device=dev).to(im.dtype)
     dots = gdx[..., None] * units[0] + gdy[..., None] * units[1]  # (.., 9)
     inter = torch.stack([dots, -dots], dim=-1).reshape(*dots.shape[:-1], 18)
     idx = torch.argmax(inter, dim=-1)
     best_o = (idx >> 1) + (NORIENT // 2) * (idx & 1)
     return ci[..., 0], best_o, gv
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """sqrt of x taken in f32 and correctly rounded, then rounded to x's
+    dtype: the same bits on the CPU and on the card, whatever the thread
+    count and whichever call it is. On the CPU torch.sqrt may go through
+    a vector math library whose accuracy mode is not fixed: a process's
+    first call has been seen up to 3,895 ulp off on a few thousand
+    pixels, and later calls 1 ulp off on some. NumPy's sqrt is the IEEE
+    one. CUDA's sqrtf is correctly rounded, so the card keeps torch."""
+    w = x.to(torch.float32)
+    if w.device.type == "cpu":
+        r = torch.from_numpy(np.sqrt(w.numpy()))
+    else:
+        r = torch.sqrt(w)
+    return r.to(x.dtype)
+
+
+def rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt_f32(x) in f32, both steps correctly rounded, so again the
+    same bits on every device and call (neither torch.rsqrt on the CPU
+    nor CUDA's rsqrtf is correctly rounded), rounded to x's dtype."""
+    r = sqrt_f32(x.to(torch.float32))
+    if r.device.type == "cpu":
+        inv = torch.from_numpy(np.float32(1.0) / r.numpy())
+    else:
+        inv = torch.ones_like(r) / r
+    return inv.to(x.dtype)
 
 
 def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
@@ -115,7 +146,7 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
     dev, dtype = im.device, im.dtype
     _, best_o, gv = hog_choices(im, sbin)
 
-    mag = torch.sqrt(gv)
+    mag = sqrt_f32(gv)
     onehot = F.one_hot(best_o, NORIENT).to(dtype) * mag[..., None]
 
     # --- histogram stage: the interior map back on the full pixel frame
@@ -130,7 +161,7 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
     norm = tree_sum(torch.square(hist[..., :half] + hist[..., half:]), -1)
     s2 = (norm[:, :-1, :-1] + norm[:, :-1, 1:] + norm[:, 1:, :-1]
           + norm[:, 1:, 1:])
-    inv = torch.rsqrt(s2 + reference.HOG_EPS)
+    inv = rsqrt_f32(s2 + reference.HOG_EPS)
     n1 = inv[:, 1 : 1 + oh, 1 : 1 + ow]
     n2 = inv[:, 0:oh, 1 : 1 + ow]
     n3 = inv[:, 1 : 1 + oh, 0:ow]

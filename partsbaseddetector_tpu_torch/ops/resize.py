@@ -19,6 +19,12 @@ float64-accurate value, within one f32 rounding of the JAX package's.
 Images carry a leading image axis, (B, H, W, C): no operation's
 rounding depends on B, so a batch of images computes each image exactly
 as it computes alone.
+
+bf16 images (the plain bf16 profile) follow the JAX package's bf16
+matrix products instead: weights rounded to bf16, each pass's taps
+multiplied and summed in f32 and the pass rounded to bf16. `tree_sum`
+likewise sums bf16 in f32 and rounds once. Both stay elementwise and
+fixed-order, so bf16 features are batch-invariant too.
 """
 
 from __future__ import annotations
@@ -86,9 +92,11 @@ def apply_banded(x: torch.Tensor, dim: int, fn, *key) -> torch.Tensor:
     dim = dim % x.dim()
     shape = list(x.shape)
     shape[dim : dim + 1] = [dst, taps]
-    g = x.index_select(dim, idx).reshape(shape)
-    g = g * wt.reshape([dst, taps] + [1] * (x.dim() - dim - 1))
-    return tree_sum(g, dim + 1)
+    # bf16 taps are multiplied and summed in f32, rounded once
+    acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    g = x.index_select(dim, idx).reshape(shape).to(acc)
+    g = g * wt.to(acc).reshape([dst, taps] + [1] * (x.dim() - dim - 1))
+    return tree_sum(g, dim + 1).to(x.dtype)
 
 
 def tree_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,6 +104,8 @@ def tree_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
     two, then halves added pairwise. Unlike torch.sum, whose order (and
     so its rounding) may follow the tensor's size, the threads or the
     device, this gives the same bits for a slice in any batch."""
+    if t.dtype == torch.bfloat16:
+        return tree_sum(t.to(torch.float32), dim).to(t.dtype)
     dim = dim % t.dim()
     n = t.shape[dim]
     p = 1 << (n - 1).bit_length()
@@ -119,20 +129,23 @@ def _device_taps(fn, key: tuple, dtype: torch.dtype, device: torch.device):
 
 
 def _apply_separable(im: torch.Tensor, fn, hkey: tuple, wkey: tuple) -> torch.Tensor:
-    """(B, H, W, C) f32 -> (B, dh, dw, C) f32: the row map then the
-    column map, both in float64, rounded to f32 once."""
+    """(B, H, W, C) -> (B, dh, dw, C): the row map then the column map.
+    f32 images: both in float64, rounded to f32 once. bf16 images: each
+    pass as the JAX package's bf16 matrix product (apply_banded)."""
+    if im.dtype == torch.bfloat16:
+        return apply_banded(apply_banded(im, 1, fn, *hkey), 2, fn, *wkey)
     out = apply_banded(im.to(torch.float64), 1, fn, *hkey)
     return apply_banded(out, 2, fn, *wkey).to(im.dtype)
 
 
 def resize_image(im: torch.Tensor, scale: float) -> torch.Tensor:
-    """Resize (B, H, W, C) f32 images by a scale factor <= 1."""
+    """Resize (B, H, W, C) f32 or bf16 images by a scale factor <= 1."""
     h, w = im.shape[1:3]
     dh, dw = cround(h * scale), cround(w * scale)
     return _apply_separable(im, resize_matrix, (h, dh), (w, dw))
 
 
 def reduce_image(im: torch.Tensor) -> torch.Tensor:
-    """Half-size binomial reduce of (B, H, W, C) f32 images."""
+    """Half-size binomial reduce of (B, H, W, C) f32 or bf16 images."""
     h, w = im.shape[1:3]
     return _apply_separable(im, reduce_matrix, (h,), (w,))

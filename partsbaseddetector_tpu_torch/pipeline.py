@@ -12,11 +12,16 @@ tree min-sum DP for every (bucket, component) pair.
     per image size), -inf masking, the DT kernels (K1, or K5 under
     PBD_DT_WINDOW=1) without a backward;
   - training (params = {'filters', 'defs', 'biases'} torch tensors): the
-    plain conv (`ops/conv.py::filter_responses`) under autograd, -1e10
-    masking, and the DTs with K4's backward, so the root scores are
-    differentiable in every pool. The HOG pyramid runs without a graph:
-    the image gets no gradient. The Fourier engine is not ported for
-    training.
+    plain conv (`ops/conv.py::filter_responses`) under autograd, or the
+    Fourier engine with the filters' spectra taken from the traced
+    filters on the device, -1e10 masking, and the DTs with K4's
+    backward, so the root scores are differentiable in every pool. The
+    HOG pyramid runs without a graph: the image gets no gradient;
+  - the plain bf16 route (conv_dtype=bfloat16, the JAX package's
+    bf16 profile without the f32 re-rank and its bf16 miner): the frame
+    cast to bf16, the pyramid and HOG in bf16, and the library's bf16
+    conv2d (`ops/conv.py::filter_responses_conv2d`), as the JAX package
+    runs lax.conv there: its Pallas conv takes f32 only.
 """
 
 from __future__ import annotations
@@ -30,7 +35,12 @@ import torch.utils.checkpoint
 
 from . import depth as depth_mod
 from .models.model import DeviceModel, PackedModel
-from .ops.conv import fft_filter_spectra, filter_responses, filter_responses_fft
+from .ops.conv import (
+    fft_filter_spectra,
+    filter_responses,
+    filter_responses_conv2d,
+    filter_responses_fft,
+)
 from .ops.conv_cuda import filter_responses_grouped
 from .ops.dp import tree_min_sum
 from .ops.pyramid import (
@@ -131,6 +141,8 @@ def root_scores(
     fft_spectra: Optional[List[torch.Tensor]] = None,
     dtype=torch.float32,
     collect_responses: Optional[List[torch.Tensor]] = None,
+    conv_dtype=torch.float32,
+    conv=None,
 ) -> List[BucketScores]:
     """Run HOG pyramid -> responses -> tree DP for every (bucket,
     component). im: one (H, W, 3) frame or a (B, H, W, 3) batch on
@@ -144,45 +156,64 @@ def root_scores(
     remat=True (with params, without tables) recomputes the DP block in
     the backward pass instead of keeping its intermediates
     (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`).
-    engine: "spatial" or "fourier" (inference only). fft_spectra
-    (optional, Fourier): fourier_spectra_args' arrays as tensors on the
-    device; without them they are computed (and memoized) on the host
-    and uploaded here. response_masks (optional): one bool tensor per
-    bucket, either (S_b, Hr, Wr), a positional gate applied to every
-    filter (depth_response_masks), or (S_b, Hr, Wr, F), a gate per
-    filter (the latent-positive part constraints of
-    train/detect_tpu.py); either form applies to every image of a
-    batch. False cells take the masking value, as outside the valid
-    extents.
-    dtype: the DP's dtype. HOG and the conv always run in f32 (the K2
-    kernel); the responses are cast to dtype before the masking: float32,
-    or bfloat16 for the hybrid profile, whose DTs widen their sources to
-    f32 (ops/distance_transform.py). collect_responses (optional): a
-    list the raw per-bucket (B, S_b, Hr, Wr, F) f32 responses, before
-    the cast and the masking, are appended to, for
-    ops/rescore.py::rescore_from_responses. A single frame's carry the
-    image axis too."""
+    engine: "spatial" or "fourier". fft_spectra (optional, Fourier
+    inference): fourier_spectra_args' arrays as tensors on the device;
+    without them they are computed (and memoized) on the host and
+    uploaded here. With params the Fourier engine transforms the traced
+    filters itself, in f32 under autograd: the host spectra are a
+    serving cache of the packed bank, and would detach the filters'
+    gradients (the JAX package asserts the same split).
+    response_masks (optional): one bool tensor per bucket, either
+    (S_b, Hr, Wr), a positional gate applied to every filter
+    (depth_response_masks), or (S_b, Hr, Wr, F), a gate per filter (the
+    latent-positive part constraints of train/detect_tpu.py); either
+    form applies to every image of a batch. False cells take the
+    masking value, as outside the valid extents.
+    dtype: the DP's dtype; the responses are cast to it before the
+    masking: float32, or bfloat16, whose DTs widen their sources to f32
+    (ops/distance_transform.py). With params it must be float32 unless
+    no graph is recorded (torch.no_grad): the bf16 miner's call; the
+    training step runs in f32. conv_dtype: the pyramid's and the
+    conv's dtype: float32 (the K2 kernel; the f32 and hybrid profiles),
+    or bfloat16 with a bf16 dtype (the plain bf16 route above; the
+    Fourier engine widens the bf16 features to f32 for its transforms).
+    collect_responses (optional): a list the raw per-bucket
+    (B, S_b, Hr, Wr, F) responses, in conv_dtype, before the cast and
+    the masking, are appended to, for ops/rescore.py::
+    rescore_from_responses. A single frame's carry the image axis too.
+    conv (optional, with params and the spatial f32 route): the conv
+    that takes (features, params["filters"]) to the responses under
+    autograd; default ops/conv.py::filter_responses. The sharded train
+    step passes its tensor-parallel one (parallel/mesh.py)."""
     if engine not in ("spatial", "fourier"):
         raise ValueError(f"unknown conv engine: {engine}")
-    if engine == "fourier" and params is not None:
-        raise NotImplementedError(
-            "training with the Fourier engine is not ported yet"
-        )
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"root_scores: DP dtype {dtype}; the ported profiles are float32 "
-            "and bfloat16 over a float32 conv"
+            "and bfloat16"
         )
-    if params is not None and dtype != torch.float32:
-        raise NotImplementedError("training runs in float32 only")
+    if conv_dtype not in (torch.float32, dtype):
+        raise NotImplementedError(
+            f"root_scores: a {conv_dtype} conv under a {dtype} DP"
+        )
+    if params is not None and fft_spectra is not None:
+        raise ValueError(
+            "fft_spectra is a serving cache of the packed bank; with params "
+            "the Fourier engine transforms the traced filters"
+        )
+    if params is not None and dtype != torch.float32 and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "training runs in float32 only; bfloat16 with params is the "
+            "miner's call, under torch.no_grad"
+        )
     spec = packed.spec
     single = im.dim() == 3
     if single:
         im = im[None]
     nimg = im.shape[0]
     with torch.no_grad():
-        feats = build_pyramid_features(im.to(torch.float32), plan, spec)
-    if engine == "fourier" and fft_spectra is None:
+        feats = build_pyramid_features(im.to(conv_dtype), plan, spec)
+    if engine == "fourier" and params is None and fft_spectra is None:
         fft_spectra = [
             torch.as_tensor(sp, device=im.device)
             for sp in fourier_spectra_args(packed, plan)
@@ -192,7 +223,9 @@ def root_scores(
     # the conv takes each bucket's B*S_b maps image-major; the spatial
     # inference engine runs every bucket in one K2 launch
     flat = [f.reshape(-1, *f.shape[2:]) for f in feats]
-    if params is None and engine == "spatial":
+    filters = dmodel.filters if params is None else params["filters"]
+    k2 = params is None and engine == "spatial" and conv_dtype == torch.float32
+    if k2:
         spatial = filter_responses_grouped(flat, dmodel.filters, dmodel.filters_split)
     resps: List[torch.Tensor] = []
     vhs: List[np.ndarray] = []
@@ -200,12 +233,17 @@ def root_scores(
     for b, bucket in enumerate(plan.buckets):
         # the Fourier engine keeps the image axis and broadcasts its
         # spectra over it
-        if params is not None:
-            resp = filter_responses(flat[b], params["filters"])
-        elif engine == "fourier":
-            resp = filter_responses_fft(feats[b], dmodel.filters, fft_spectra[b])
-        else:
+        if engine == "fourier":
+            resp = filter_responses_fft(
+                feats[b].to(torch.float32), filters,
+                None if params is not None else fft_spectra[b],
+            )
+        elif k2:
             resp = spatial[b]
+        elif conv_dtype == torch.bfloat16:
+            resp = filter_responses_conv2d(flat[b], filters)
+        else:
+            resp = (conv or filter_responses)(flat[b], filters)
         resp = resp.reshape(nimg, -1, *resp.shape[-3:])
         if collect_responses is not None:
             # real placements never index masked cells, and the re-score

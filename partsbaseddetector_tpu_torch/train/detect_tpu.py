@@ -23,8 +23,15 @@ per bucket expresses the reference's per-part masking exactly,
 including the fixed-mixtures quirk where ONLY the mixture constraint
 applies (detect.m:88-99).
 
-The masking value. The inference route masks with -inf; the JAX miner
-runs the training route and masks with -1e10 (detect.m's INF). After
+dtype=torch.bfloat16 runs the JAX miner's bf16 call itself:
+root_scores with the f32 pools as params (under torch.no_grad) and
+-1e10 masking in bf16, the pyramid, HOG and the library's conv2d in
+bf16, the DP in bf16 with its DTs widened to f32 (K1, K3 and T2 on the
+card, no K2).
+
+The masking value. The f32 miner runs the inference route, which masks
+with -inf; the JAX miner runs the training route and masks with -1e10
+(detect.m's INF). After
 the validity cut at _NEG_THRESH = -1e9 both give the same valid
 placements and the same finite scores: a -1e10 cell never wins a max
 against a live source (a live score exceeds it by ~1e10, far more than
@@ -84,10 +91,9 @@ class TPUMiner:
         dtype=torch.float32,
         device="cuda",
     ):
-        if dtype != torch.float32:
+        if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
-                f"TPUMiner: dtype {dtype}; bf16 mining needs bf16 without "
-                "the f32 re-rank (ROADMAP.md queue 1 item 5)"
+                f"TPUMiner: dtype {dtype}; float32 and bfloat16 are ported"
             )
         self.device = resolve_device(device)
         self._model = model
@@ -97,6 +103,7 @@ class TPUMiner:
         # (box scales, levels) on the device)
         self._plans: Dict[Tuple[int, int, int], Tuple] = {}
         self._dmodel = None
+        self._params = None
         self._struct = self._structure_key(model)
 
     @staticmethod
@@ -116,6 +123,16 @@ class TPUMiner:
             self._struct = self._structure_key(model)
         self._model = model
         self._dmodel = None
+        self._params = None
+
+    def _get_params(self) -> dict:
+        """The weights as the f32 pools of the training route (the bf16
+        miner's: the JAX miner runs root_scores with them)."""
+        if self._params is None:
+            from .sgd import model_params
+
+            self._params = model_params(self._model, device=self.device)
+        return self._params
 
     def _get_dmodel(self):
         if self._dmodel is None:
@@ -153,9 +170,19 @@ class TPUMiner:
         spec = packed.spec
         max_det = self.max_det
         p_max = packed.max_nparts
-        scores = root_scores(
-            im, packed, dmodel, plan, with_tables=True, response_masks=masks,
-        )
+        if self.dtype == torch.bfloat16:
+            # the JAX miner's bf16 call: the training route's pools and
+            # -1e10 masking, the pyramid, HOG and the library conv in
+            # bf16, the DP in bf16 with its DTs widened to f32
+            scores = root_scores(
+                im, packed, dmodel, plan, params=self._get_params(),
+                with_tables=True, response_masks=masks,
+                dtype=torch.bfloat16, conv_dtype=torch.bfloat16,
+            )
+        else:
+            scores = root_scores(
+                im, packed, dmodel, plan, with_tables=True, response_masks=masks,
+            )
         rows = []  # (score, valid, level, comp, mixtures, xs, ys, boxes)
         for bs in scores:
             box_scales, levels = tabs[bs.bucket_index]

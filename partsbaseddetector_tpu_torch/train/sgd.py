@@ -93,8 +93,14 @@ class LatentHingeLoss:
     graph at a time and leaves the gradient in each pool's `.grad`."""
 
     def __init__(self, packed: PackedModel, imsize, reg: float,
-                 margin: float, latent: bool):
+                 margin: float, latent: bool, conv=None,
+                 engine: str = "spatial"):
         self.packed = packed
+        # root_scores' `conv` (the plain one by default, a tensor-parallel
+        # one in parallel/mesh.py) and its engine ("fourier": spectra of
+        # the traced filters)
+        self.conv = conv
+        self.engine = engine
         self.plan = make_plan(packed, imsize)
         self.reg = reg
         self.margin = margin
@@ -118,7 +124,7 @@ class LatentHingeLoss:
         im = torch.as_tensor(im, device=dev)
         scores = root_scores(
             im, self.packed, self._dmodel(dev), self.plan, params,
-            with_tables=False,
+            with_tables=False, conv=self.conv, engine=self.engine,
         )
         if not self.latent:
             return self.margin - label * max_of_scores(scores)

@@ -188,12 +188,10 @@ def test_stream_candidates_match_the_jax_stream(workers):
         alone = port.detector.detect(rgb, d)
         want_nms = Candidate.non_maxima_suppression(
             rgb.shape[:2], Candidate.sort(alone), port.max_overlap)
-        # to the port detector's CPU tolerance: a process's first CPU
-        # detect can round its scores otherwise (ROADMAP.md §3)
         assert len(want_nms) == len(g.candidates)
         for x, y in zip(g.candidates, want_nms):
-            assert abs(x.score - y.score) < 1e-4
-            np.testing.assert_allclose(x.parts, y.parts, atol=1e-3)
+            assert x.score == y.score
+            np.testing.assert_array_equal(x.parts, y.parts)
 
 
 @pytest.mark.parametrize("remove_planes", [False, True])

@@ -23,7 +23,9 @@ CPU path's candidates through K1, K2 and T2, and the QP trainers'
 miner the CPU miner's placements, plain and latent. person26 read back
 from .xml and .mat detects as the in-memory model bit for bit, and the
 stream node (apps.stream.DetectionStream.process_stream) gives sorted,
-NMS'd detect's candidates bit for bit.
+NMS'd detect's candidates bit for bit. parallel/ at world size 1 over
+NCCL gives detect_batch_fn's outputs bit for bit and make_train_step's
+loss and pools within rtol 1e-4, atol 1e-5.
 """
 
 import os
@@ -800,3 +802,47 @@ def test_process_stream_equals_sorted_nms_detect(cuda, tmp_path):
         assert len(r.candidates) == len(want) > 0
         for g, w in zip(r.candidates, want):
             assert g.score == w.score and np.array_equal(g.parts, w.parts)
+
+
+def test_world1_nccl_parallel_detect_and_train_step(cuda):
+    """One process over NCCL (world size 1, a single-rank group over an
+    in-memory store): the mesh's batched detect gives detect_batch_fn's
+    outputs bit for bit, and the sharded train step's loss and pools
+    make_train_step's within loss rtol 1e-4, pools rtol 1e-4, atol 1e-5.
+    NCCL is not replaced by another backend."""
+    import torch.distributed as dist
+
+    from partsbaseddetector_tpu_torch import PartsBasedDetector, parallel
+    from partsbaseddetector_tpu_torch.models.model import make_synthetic_model, pack_model
+    from partsbaseddetector_tpu_torch.train import sgd
+
+    assert not dist.is_initialized()
+    model = make_synthetic_model(nparts=3, nmix=2, fsize=(3, 3), sbin=8,
+                                 interval=2, thresh=-5.0, seed=3)
+    try:
+        mesh = parallel.make_mesh(device="cuda")
+        assert dist.get_backend() == "nccl" and mesh.shape == (1, 1)
+        det = PartsBasedDetector(model, max_detections=16, device="cuda")
+        batch = torch.from_numpy(
+            np.random.RandomState(2).rand(4, 80, 80, 3).astype(np.float32) * 255
+        ).cuda()
+        want = det.detect_batch_fn((80, 80), 4)(batch)
+        for g, w in zip(parallel.batched_detect_fn(det, (80, 80), mesh)(batch), want):
+            assert torch.equal(g.full_tensor(), w)
+        packed = pack_model(model)
+        rng = np.random.RandomState(1)
+        images = torch.from_numpy(rng.rand(2, 80, 80, 3).astype(np.float32) * 255).cuda()
+        labels = np.array([1.0, -1.0], np.float32)
+        step, make_opt, shard = parallel.sharded_train_step(packed, (80, 80), mesh)
+        params = shard(sgd.model_params(model, device="cuda"))
+        _, _, loss = step(params, make_opt(params.values()), images, labels)
+        ref_step, ref_opt = sgd.make_train_step(packed, (80, 80))
+        ref = sgd.model_params(model, device="cuda")
+        ref, _, ref_loss = ref_step(ref, ref_opt(ref.values()), images, labels)
+        np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-4)
+        for k, v in shard.gather(params).items():
+            np.testing.assert_allclose(v.cpu().numpy(), ref[k].detach().cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

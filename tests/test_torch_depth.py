@@ -227,3 +227,27 @@ def test_bad_depth_shape_raises():
     det = PartsBasedDetector(model_from_jax(jm), device_depth_filter=True, device="cpu")
     with pytest.raises(ValueError):
         det.detect(im, np.ones((64, 72, 1), np.float32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_host_filter_medians_take_the_native_helper_for_float32_maps(monkeypatch, dtype):
+    """The host depth filter's medians: 2-D float32 maps go to the
+    port's native helper when it builds (as the JAX package's copy does),
+    any other map to the NumPy loop; both give the reference's
+    nth_element-at-n/2 value exactly, NaNs skipped, empty boxes 0."""
+    from partsbaseddetector_tpu_torch import depth as tdepth
+    from partsbaseddetector_tpu_torch import native
+
+    rng = np.random.RandomState(4)
+    d = (1 + rng.rand(60, 80)).astype(dtype)
+    d[rng.rand(60, 80) < 0.1] = np.nan
+    boxes = [[3, 4, 20, 30], [0, 0, 79, 59], [70, 50, 120, 90], [-5, -5, 10, 8],
+             [40, 40, 40, 40], [30, 10, 20, 5]]
+    calls = []
+    real = native.box_medians
+    monkeypatch.setattr(native, "box_medians",
+                        lambda *a: calls.append(1) or real(*a))
+    got = tdepth._batch_medians(d, boxes)
+    want = np.array([tdepth._median_depth(d, b) for b in boxes])
+    np.testing.assert_array_equal(got, want)
+    assert len(calls) == int(dtype == np.float32 and native.available())

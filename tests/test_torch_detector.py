@@ -113,13 +113,11 @@ def test_npz_round_trip(tmp_path):
     "kwargs,error",
     [
         (dict(conv_engine="winograd"), ValueError),
-        # bf16 without the re-rank runs HOG and the conv in bf16: not ported
-        (dict(dtype=torch.bfloat16, rerank_fp32=False), NotImplementedError),
+        (dict(dtype=np.float16), NotImplementedError),
         (dict(dtype=torch.float64), NotImplementedError),
         (dict(border_mode="same"), ValueError),
         (dict(dtype=torch.float16), NotImplementedError),
-        (dict(conv_engine="fourier", dtype=torch.bfloat16, rerank_fp32=False),
-         NotImplementedError),
+        (dict(dtype="float16", rerank_fp32=False), NotImplementedError),
     ],
 )
 def test_options_outside_the_slice_raise(kwargs, error):

@@ -1,5 +1,6 @@
 """The torch port must never import jax, optax or orbax (its package,
-training and the surfaces included, and chip_smoke.py), nor need PyYAML
+training, the surfaces, parallel/ and the examples included, and
+chip_smoke.py), nor need PyYAML
 or PIL to import (the card's machine may lack them: only reading .yml
 models, parse_config and the demo's image I/O use them, at call time).
 
@@ -46,12 +47,16 @@ SCRIPT = textwrap.dedent(
                 "visualize", "visualize_model", "cloud", "apps.sync",
                 "apps.messages", "apps.stream", "apps.pipeline", "apps.demo",
                 "apps.model_transfer", "utils.profiling", "cpu_detector",
-                "native"):
+                "native", "parallel", "parallel.mesh", "parallel.distributed",
+                "examples.rgbd_serving_demo", "examples.training_demo"):
         assert pkg.__name__ + "." + mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not loaded, loaded
     assert "partsbaseddetector_tpu" not in sys.modules
     assert pkg.CPUPartsBasedDetector and pkg.Visualize
+    from partsbaseddetector_tpu_torch import parallel
+
+    assert callable(parallel.make_mesh) and callable(parallel.distributed_train_step)
     from partsbaseddetector_tpu_torch.apps import pipeline
 
     pipeline.PipelineConfig(model_file="m.xml")  # build() needs no yaml

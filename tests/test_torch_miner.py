@@ -309,11 +309,6 @@ def test_shared_filters_take_the_reference_route():
         np.testing.assert_array_equal(got[0][key], val)
 
 
-def test_bf16_mining_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TPUMiner(model_from_jax(_model3()), dtype=torch.bfloat16, device="cpu")
-
-
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
 def test_default_device_is_the_card():
     model = model_from_jax(_model3())

@@ -191,16 +191,6 @@ def test_root_masks_match_jax(setup):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_fourier_engine_with_params_raises(setup):
-    jm, jp, tp, images, _ = setup
-    plan = tpipe.make_plan(tp, IMSIZE)
-    with pytest.raises(NotImplementedError):
-        tpipe.root_scores(
-            torch.from_numpy(images[0]), tp, to_device(tp, "cpu"), plan,
-            params=tsgd.model_params(model_from_jax(jm), device="cpu"), engine="fourier",
-        )
-
-
 def test_fit_with_checkpoint_and_resume(tmp_path):
     """Mirrors test_train_parallel.py::test_fit_driver_with_checkpoint."""
     model = model_from_jax(_tiny_model(seed=90))
