@@ -178,13 +178,27 @@ script exits non-zero without the final line):
  24. examples    the port's examples (partsbaseddetector_tpu_torch/
                  examples/) on the card: the RGB-D serving demo and the
                  training demo --fast, their launches and seconds
+ 25. face        config 1's face model (39 parts x 3 mixtures, F = 117)
+                 and a 68-part model (F = 204) at 480x640, one bucket per
+                 octave, thresh -1e9: K1, K3, K2 and T2 launched,
+                 deterministic, ms/image (median of 7), a profile, K2's
+                 launch on the detect's buckets against its plain version
+                 and the detect's bits, with its event and device ms, and
+                 the CPU path's candidates at 120x160
+ 26. bench       python -m partsbaseddetector_tpu_torch.bench --samples 1
+                 in a subprocess: exit 0, a record for each of configs 1-6
+                 and the hybrid profile, none skipped, erred or failing
+                 its gate, every record again at the end, the headline
+                 last; its seconds
 
 The second-to-last lines are the kernel table (one JSON object; the K1,
 K3, K2 and T2 rows carry hybrid_launches, mine_launches, a plain
 mine's launches, and surfaces_launches, the stream node's over its 8
 frames, and the launches of phases 20-24 where the kernel runs there:
 parallel_launches, bf16_plain_launches, bf16_mine_launches,
-fourier_train_launches, examples_launches) and the card's `nvidia-smi` name and power limit; the last line is
+fourier_train_launches, examples_launches, and face_launches of
+phase 25, whose K2 row also carries face_detects, each model's K2 launch
+timed) and the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits 1 and prints no result.
 """
@@ -461,9 +475,10 @@ def check_conv(torch, conv, conv_cuda, gen) -> dict:
             **bnd, "library_ms": library}
 
 
-def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card) -> dict:
+def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card,
+                      phase: str = "conv") -> dict:
     """The K2 row: the conv's main-path launch, every bucket of one
-    person26 VGA detect against one split bank, captured from
+    VGA detect (person26's; the face phase's models) against one split bank, captured from
     det.detect(im). The launch again on the captured stacks equals the
     detect's outputs bit for bit and each output is within 1e-5*sum|x*w|
     of filter_responses; then its event time beside the plain version's,
@@ -487,7 +502,7 @@ def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card) -> d
     finally:
         pipeline.filter_responses_grouped = orig
     if len(calls) != 1 or calls[0][2] is None:
-        raise AssertionError(f"conv: {len(calls)} grouped calls in a detect, or no split bank")
+        raise AssertionError(f"{phase}: {len(calls)} grouped calls in a detect, or no split bank")
     feats, filt, bank, seen = calls[0]
     run = lambda: conv_cuda.filter_responses_grouped(feats, filt, bank)
     before = conv_cuda.launches
@@ -498,10 +513,10 @@ def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card) -> d
         want = conv.filter_responses(x, filt)
         scale = conv.filter_responses(x.abs(), filt.abs())
         if g.shape != want.shape or not torch.equal(g, s_):
-            raise AssertionError(f"conv: bucket {tuple(x.shape)} differs from the detect's")
+            raise AssertionError(f"{phase}: bucket {tuple(x.shape)} differs from the detect's")
         err = (g - want).abs()
         if not bool((err <= CONV_RTOL * scale).all()):
-            raise AssertionError(f"conv: bucket {tuple(x.shape)} exceeds 1e-5*sum|x*w|")
+            raise AssertionError(f"{phase}: bucket {tuple(x.shape)} exceeds 1e-5*sum|x*w|")
         ratio = max(ratio, (err / (CONV_RTOL * scale).clamp_min(1e-30)).max().item())
         err_max = max(err_max, err.max().item())
         s_n, oh, ow, f_ = want.shape
@@ -509,15 +524,15 @@ def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card) -> d
         nbytes_ += nbytes(x, want)
     ms = cuda_ms(run, reps=20)
     if not dms > 0:
-        raise AssertionError("conv: the detect's profile read no conv time")
+        raise AssertionError(f"{phase}: the detect's profile read no conv time")
     plain = cuda_ms(lambda: [conv.filter_responses(x, filt) for x in feats], reps=3)
     w_nchw = filt.permute(0, 3, 1, 2).contiguous()
     x_nchw = [x.permute(0, 3, 1, 2).contiguous() for x in feats]
     conv2d = torch.nn.functional.conv2d
     library = cuda_ms(lambda: [conv2d(x, w_nchw) for x in x_nchw], reps=5)
     bnd = conv_bound(nbytes_, ops)
-    log("conv", what="one person26 VGA detect's buckets, one grouped launch",
-        buckets=len(feats), launches=launches,
+    log(phase, what=f"one {det.name} VGA detect's buckets, one grouped launch",
+        buckets=len(feats), filters=filt.shape[0], launches=launches,
         shapes=";".join("x".join(map(str, x.shape[:3])) for x in feats),
         arithmetic="3xTF32", max_abs_err=f"{err_max:.3e}", bound="1e-5*sum|x*w|",
         worst_err_over_bound=f"{ratio:.3g}", equal_to_detect=True,
@@ -528,9 +543,9 @@ def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card) -> d
         fp32_bound_ms=f"{bnd['fp32_bound_ms']:.4f}",
         share_of_bound_device=f"{bnd['bound_ms'] / dms:.3f}", card=f"'{card}'")
     if launches != 1:
-        raise AssertionError(f"conv: a detect's buckets took {launches} launches")
+        raise AssertionError(f"{phase}: a detect's buckets took {launches} launches")
     return {"max_abs_err": err_max, "ms": ms, "device_ms": dms, "plain_ms": plain,
-            **bnd, "library_ms": library, "gflop": ops / 1e9}
+            **bnd, "library_ms": library, "gflop": ops / 1e9, "filters": filt.shape[0]}
 
 
 def check_golden(np, pbd) -> None:
@@ -2939,6 +2954,102 @@ def check_examples(torch, np, dt_cuda, conv_cuda, tc, card) -> dict:
     return {"rgbd": rgbd, "training": train}
 
 
+def face68_model(pbd):
+    """The frontal-face part count (68 landmarks) at the face model's
+    shape: 3 mixtures, 5x5 filters, sbin 4, interval 5; F = 204 filters,
+    two N blocks of K2."""
+    return pbd.make_synthetic_model(name="face68", nparts=68, nmix=3, fsize=(5, 5),
+                                    sbin=4, interval=5, thresh=0.25, seed=0)
+
+
+def check_face(torch, np, pbd, conv, conv_cuda, pipeline, dt_cuda, tc, im, card) -> dict:
+    """Config 1's face model (39 parts x 3 mixtures: F = 117, a partial
+    last n8 tile in K2) and the 68-part model (F = 204: two N blocks) at
+    480x640, one bucket per octave (interval 5), thresh -1e9: K1, K3, K2
+    and T2 launched by one detect (the counts set to 0 just before it),
+    finite and two runs identical, the ms/image median of 7, a profile,
+    K2's launch on the detect's buckets against the plain version
+    (check_conv_detect), and the CPU path's candidates at 120x160 (32
+    detections) at the person26 phase's gate. Returns each model's
+    launches and K2 row."""
+    out = {}
+    for model in (pbd.make_face_like_model(), face68_model(pbd)):
+        model.thresh = -1e9
+        name, nparts = model.name, len(model.parentid[0])
+        det = pbd.PartsBasedDetector(model, buckets_per_octave=1, device=DEVICE)
+        zero_counts(dt_cuda, conv_cuda, tc)
+        first = det.detect(im)
+        torch.cuda.synchronize()
+        counts = mine_counts(dt_cuda, conv_cuda, tc)
+        require_launches(name, counts, ("dt1d", "dt1d_aux", "conv", "transpose"))
+        if not first or not all(np.isfinite(c.score) and np.isfinite(c.parts).all()
+                                and c.parts.shape == (nparts, 4) for c in first):
+            raise AssertionError(f"{name}: no candidates, or malformed ones")
+        if not same_candidates(first, det.detect(im)):
+            raise AssertionError(f"{name}: two runs differ")
+        times = [timed_detect(torch, det, im) for _ in range(7)]
+        ms = statistics.median(times)
+        families = profile_person26(torch, det, im, ms, phase=f"{name}_profile")
+        k2 = check_conv_detect(torch, conv, conv_cuda, pipeline, det, im,
+                               families["conv"], card, phase=f"{name}_conv")
+        small = im[:120, :160]
+        kw = dict(buckets_per_octave=1, max_detections=32)
+        want = pbd.PartsBasedDetector(model, device="cpu", **kw).detect(small)
+        got = pbd.PartsBasedDetector(model, device=DEVICE, **kw).detect(small)
+        if not want or not same_candidates(got, want, score_tol=1e-4, box_tol=1e-3):
+            raise AssertionError(f"{name}: CUDA and CPU paths differ at 120x160: "
+                                 + difference(got, want))
+        log(name, imsize="480x640", parts=nparts, filters=k2["filters"],
+            buckets_per_octave=1, candidates=len(first),
+            top_score=f"{first[0].score:.4f}", deterministic=True,
+            **{f"{k}_launches": v for k, v in counts.items()},
+            ms_per_image_median=f"{ms:.3f}", ms_all=",".join(f"{t:.3f}" for t in times),
+            k2_ms=f"{k2['ms']:.4f}", k2_device_ms=f"{k2['device_ms']:.4f}",
+            k2_bound_ms=f"{k2['bound_ms']:.4f}",
+            cpu_match_120x160=f"{len(want)} candidates", card=f"'{card}'")
+        out[name] = {"counts": counts, "ms": ms, "k2": k2}
+    return out
+
+
+def check_bench(torch, card) -> None:
+    """The port's bench entry point in a subprocess, as a user runs it
+    (python -m partsbaseddetector_tpu_torch.bench --samples 1): exit 0, a
+    compact record for each of configs 1-6 and the hybrid profile with
+    none skipped or erred, every record printed again at the end in the
+    same order, the headline last."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "partsbaseddetector_tpu_torch.bench", "--samples", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    if proc.returncode != 0:
+        raise AssertionError(f"bench: exit {proc.returncode}: "
+                             + "; ".join(proc.stdout.splitlines()[-4:])
+                             + proc.stderr[-1500:])
+    records = [r for r in lines if "config" in r and not r.get("detail")
+               and not r.get("headline")]
+    keys = [(r["config"], r.get("profile")) for r in records]
+    want = [(2, None), (6, None), (2, "hybrid"), (1, None), (4, None), (5, None),
+            (3, None)]
+    if keys != want + want:
+        raise AssertionError(f"bench: records {keys}, want {want} twice")
+    bad = [r for r in records if "value" not in r or r.get("gate") is False]
+    if bad:
+        raise AssertionError(f"bench: skipped, erred or failed a gate: {bad}")
+    if records[: len(want)] != records[len(want):] or lines[-len(want) - 1:-1] != records[len(want):]:
+        raise AssertionError("bench: the records at the end differ from the first ones")
+    head = lines[-1]
+    if not head.get("headline") or head["value"] != records[0]["value"]:
+        raise AssertionError(f"bench: the last line is not the headline: {head}")
+    for r in records[: len(want)]:
+        log("bench_record", **{k: (f"'{v}'" if isinstance(v, str) else v)
+                               for k, v in r.items()})
+    log("bench", seconds=f"{secs:.1f}", exit_code=proc.returncode, records=len(want),
+        headline_images_per_s=head["value"], card=f"'{card}'")
+
+
 def main() -> int:
     global cuda_ms, device_ms, device_profile
     try:
@@ -3027,8 +3138,11 @@ def main() -> int:
     ftrain = check_fourier_train(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc,
                                  card)["counts"]
     ex = check_examples(torch, np, dt_cuda, conv_cuda, tc, card)
+    face = check_face(torch, np, pbd, conv, conv_cuda, pipeline, dt_cuda, tc, im, card)
+    check_bench(torch, card)
     ps, pf, pt = par["spatial"]["counts"], par["fourier"]["counts"], par["train"]["counts"]
     exr, ext = ex["rgbd"], ex["training"]
+    face_launches = lambda k: {m: face[m]["counts"][k] for m in face}
 
     table = {"kernels": [
         {"name": "dt1d_axis2", "route": "cuda",
@@ -3042,7 +3156,8 @@ def main() -> int:
                                "train": pt["dt1d"]},
          "bf16_plain_launches": plain16["dt1d"], "bf16_mine_launches": mine16["dt1d"],
          "fourier_train_launches": ftrain["dt1d"],
-         "examples_launches": {"rgbd": exr["dt1d"], "training": ext["dt1d"]}, **dt_row},
+         "examples_launches": {"rgbd": exr["dt1d"], "training": ext["dt1d"]},
+         "face_launches": face_launches("dt1d"), **dt_row},
         # K3's row: the same kernel's x passes (the transposed map, aux),
         # counted where they launch
         {"name": "dt1d_axis2_xpass", "route": "cuda",
@@ -3055,7 +3170,7 @@ def main() -> int:
          "bf16_plain_launches": plain16["dt1d_aux"],
          "bf16_mine_launches": mine16["dt1d_aux"],
          "examples_launches": {"rgbd": exr["dt1d_aux"], "training": ext["dt1d_aux"]},
-         **xpass_row},
+         "face_launches": face_launches("dt1d_aux"), **xpass_row},
         {"name": "conv3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
@@ -3067,6 +3182,8 @@ def main() -> int:
          "bf16_plain_launches": plain16["conv"], "bf16_mine_launches": mine16["conv"],
          "fourier_train_launches": ftrain["conv"],
          "examples_launches": {"rgbd": exr["conv"], "training": ext["conv"]}, **conv_row,
+         "face_launches": face_launches("conv"),
+         "face_detects": {m: face[m]["k2"] for m in face},
          "table_shape": conv_table},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
@@ -3089,7 +3206,7 @@ def main() -> int:
          "bf16_mine_launches": mine16["transpose"],
          "fourier_train_launches": ftrain["transpose"],
          "examples_launches": {"rgbd": exr["transpose"], "training": ext["transpose"]},
-         **tp_row},
+         "face_launches": face_launches("transpose"), **tp_row},
         {"name": "conv_proto_3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",

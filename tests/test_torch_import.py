@@ -1,6 +1,6 @@
 """The torch port must never import jax, optax or orbax (its package,
-training, the surfaces, parallel/ and the examples included, and
-chip_smoke.py), nor need PyYAML
+training, the surfaces, parallel/, the examples and the bench entry
+point included, and chip_smoke.py), nor need PyYAML
 or PIL to import (the card's machine may lack them: only reading .yml
 models, parse_config and the demo's image I/O use them, at call time).
 
@@ -48,7 +48,7 @@ SCRIPT = textwrap.dedent(
                 "apps.messages", "apps.stream", "apps.pipeline", "apps.demo",
                 "apps.model_transfer", "utils.profiling", "cpu_detector",
                 "native", "parallel", "parallel.mesh", "parallel.distributed",
-                "examples.rgbd_serving_demo", "examples.training_demo"):
+                "examples.rgbd_serving_demo", "examples.training_demo", "bench"):
         assert pkg.__name__ + "." + mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not loaded, loaded
