@@ -22,7 +22,8 @@ script exits non-zero without the final line):
   4. conv        the conv kernel (3xTF32 on the tensor cores) against
                  filter_responses on the card at a person26 VGA bucket,
                  |err| <= 1e-5 * sum|x*w|; events and device ms beside
-                 plain, cuDNN, and the 3xTF32 and FP32 bounds
+                 plain, cuDNN, and the 3xTF32 and FP32 bounds; then (after
+                 person26) the K2 row, a detect's buckets in one launch
   5. golden      tests/fixtures/golden_model.npz through the port on the
                  card: 15 candidates, |dscore| < 2e-3, boxes within 5e-2
   6. person26    the 26-part model at 480x640: K1, K2 and T2 launched,
@@ -151,7 +152,8 @@ script exits non-zero without the final line):
                  K2 and T2 launched, deterministic, ms/image beside f32 in
                  turns, the CPU path's candidates at 120x160, the JAX
                  bench's rerank parity at 240x320, the f32 re-rank equal
-                 to plain f32, a profile and the re-score stage's share
+                 to plain f32, a profile and the re-score stage's ms by
+                 CUDA events
  19. hybrid_serving  detect_many(microbatch=8) with bf16 over config 4's 64
                  frames: launches, images/s beside f32 in turns, the first
                  8 frames equal to per-frame detect
@@ -190,6 +192,29 @@ script exits non-zero without the final line):
                  and the hybrid profile, none skipped, erred or failing
                  its gate, every record again at the end, the headline
                  last; its seconds
+ 27. dt_public   ops.shift_distance_transform_2d (steps 1 and 2) and
+                 ops.distance_transform_2d at person26 VGA's finest
+                 bucket, (4, 5, 4, 126, 166) maps: K1 twice (K3 once) and
+                 T2 twice per call, values and pointers equal to the CPU
+                 path's bit for bit, (Ix, Iy) the packed pointer's fields
+ 28. lone_launches  20 profiler windows of one bare launch each of K1,
+                 K3's x pass, K2, K4, K5, T2 and T1 at the kernel table's
+                 shapes, last, in a new process started after the
+                 bench (python3 chip_smoke.py --lone-launches): each
+                 window records its one kernel event; each kernel's
+                 median device ms, and its median ms by CUDA events
+                 around one bare launch
+
+The order is 1-6, then the phases whose profiler windows hold a few
+launches each (4's K2 row `conv`, 7's `dt_glue` and `transpose`, 8, 10,
+17, 16), then 7's `profile` and the rest as listed. Every profiled
+window of a hand kernel (the per-family device times of every phase,
+utils/profiling.py::profiled and device_ms with launches) must record
+exactly the launches the wrappers counted in it, or the phase fails
+naming the family and both counts. Phase 28 runs after every window
+over whole detects, train steps and the bench, in a process of its own:
+in this one, by then, torch.profiler drops lone windows' records
+(PERF.md §6).
 
 The second-to-last lines are the kernel table (one JSON object; the K1,
 K3, K2 and T2 rows carry hybrid_launches, mine_launches, a plain
@@ -198,7 +223,9 @@ frames, and the launches of phases 20-24 where the kernel runs there:
 parallel_launches, bf16_plain_launches, bf16_mine_launches,
 fourier_train_launches, examples_launches, and face_launches of
 phase 25, whose K2 row also carries face_detects, each model's K2 launch
-timed) and the card's `nvidia-smi` name and power limit; the last line is
+timed; every row carries lone_launch_device_ms and
+lone_launch_event_ms of phase 28) and the
+card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits 1 and prints no result.
 """
@@ -256,9 +283,18 @@ cuda_ms = None
 # fn() without the gaps between launches
 device_ms = None
 # device_profile(prof, per=1.0): a profiled window's device ms by kernel
-# family (utils/profiling.py::FAMILIES), the busy total, the device ops
-# and the busiest kernels
+# family (utils/profiling.py::FAMILIES), the busy total, the device ops,
+# the busiest kernels and the hand kernels' events by family
 device_profile = None
+# profiled(fn, per=1.0): device_profile of one profiler pass over fn(),
+# raising unless it recorded every launch the wrappers counted in it
+profiled = None
+# window(): the profiler window those take (an opening spin kernel,
+# left out of the readings, and pads);
+# launch_counts(), launches_since(before), require_launches(profile,
+# expected): the wrappers' launch counters by family, and the check
+# that a profile recorded as many kernel events
+window = launch_counts = launches_since = require_launches = None
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -389,15 +425,12 @@ def check_dt(torch, dt_cuda, gen) -> dict:
     run_x = lambda: dt_cuda.dt1d(*xargs[:4], 166, 1, nvalid=xargs[4], aux=xaux)
     # the event time of the wrapper call, as every earlier run of this
     # script took it (ms), and beside it the kernel's own device time
-    # (device_ms, the profiler's dt1d family: a call of the wrapper also
-    # launches flatten_maps' small torch kernels, and at these kernel
-    # times CUDA events around it time the host)
-    # the busier of two profiles each: the profiler now and then loses a
-    # pass's kernel events, which can only lower a reading
-    dev_y = max((profile_device(torch, lambda: [run_y() for _ in range(20)], 20)
-                 for _ in range(2)), key=lambda p: p["families"]["dt1d"])
-    dev_x = max((profile_device(torch, lambda: [run_x() for _ in range(20)], 20)
-                 for _ in range(2)), key=lambda p: p["families"]["dt1d"])
+    # (the profiler's dt1d family: a call of the wrapper also launches
+    # flatten_maps' small torch kernels, and at these kernel times CUDA
+    # events around it time the host), from a window that recorded every
+    # launch
+    dev_y = profiled(lambda: [run_y() for _ in range(20)], 20)
+    dev_x = profiled(lambda: [run_x() for _ in range(20)], 20)
     dms_y, dms_x = dev_y["families"]["dt1d"], dev_x["families"]["dt1d"]
     ms_y, ms_x = cuda_ms(run_y, reps=20), cuda_ms(run_x, reps=20)
     plain_y = cuda_ms(lambda: dt_cuda.dt1d_plain(*yargs, 126, 1), reps=3)
@@ -444,11 +477,7 @@ def check_conv(torch, conv, conv_cuda, gen) -> dict:
     if not bool((err <= CONV_RTOL * scale).all()):
         raise AssertionError(f"conv error exceeds 1e-5*sum|x*w| (x{ratio:.3g})")
     ms = cuda_ms(run, reps=20)
-    # the largest of three profiles: the profiler now and then loses a
-    # pass's kernel events, which can only lower a reading
-    dms = max(
-        profile_device(torch, lambda: [run() for _ in range(10)], 10)["families"]["conv"]
-        for _ in range(3))
+    dms = profiled(lambda: [run() for _ in range(10)], 10)["families"]["conv"]
     plain = cuda_ms(lambda: conv.filter_responses(feat, filt))
     # the library call: cuDNN's correlation on the same shapes, TF32 off
     x_nchw = feat.permute(0, 3, 1, 2).contiguous()
@@ -475,19 +504,17 @@ def check_conv(torch, conv, conv_cuda, gen) -> dict:
             **bnd, "library_ms": library}
 
 
-def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card,
-                      phase: str = "conv") -> dict:
+def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, card,
+                      phase: str = "conv", dms=None) -> dict:
     """The K2 row: the conv's main-path launch, every bucket of one
     VGA detect (person26's; the face phase's models) against one split bank, captured from
     det.detect(im). The launch again on the captured stacks equals the
     detect's outputs bit for bit and each output is within 1e-5*sum|x*w|
-    of filter_responses; then its event time beside the plain version's,
-    cuDNN's (one conv2d per bucket) and the bounds of the detect's work.
-    dms: its device time, the `conv` family of the detect's profile (in
-    this process, after the phases before it, profiles of the captured
-    launch alone read part of its time or none: 0.66 ms a launch for ten
-    back-to-back launches where events read 0.81, and 0 for most single
-    ones)."""
+    of filter_responses; then its event time and its device time beside
+    the plain version's, cuDNN's (one conv2d per bucket) and the bounds of
+    the detect's work. The device time is the profiler's over ten
+    captured launches, or `dms` where given: the `conv` family of the
+    detect's own profile (each window complete, held to the counters)."""
     calls = []
     orig = pipeline.filter_responses_grouped
 
@@ -523,8 +550,8 @@ def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card,
         ops += 2.0 * s_n * oh * ow * filt[0].numel() * f_
         nbytes_ += nbytes(x, want)
     ms = cuda_ms(run, reps=20)
-    if not dms > 0:
-        raise AssertionError(f"{phase}: the detect's profile read no conv time")
+    if dms is None:
+        dms = profiled(lambda: [run() for _ in range(10)], 10)["families"]["conv"]
     plain = cuda_ms(lambda: [conv.filter_responses(x, filt) for x in feats], reps=3)
     w_nchw = filt.permute(0, 3, 1, 2).contiguous()
     x_nchw = [x.permute(0, 3, 1, 2).contiguous() for x in feats]
@@ -537,7 +564,7 @@ def check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, dms, card,
         arithmetic="3xTF32", max_abs_err=f"{err_max:.3e}", bound="1e-5*sum|x*w|",
         worst_err_over_bound=f"{ratio:.3g}", equal_to_detect=True,
         gflop=f"{ops / 1e9:.3f}", mbytes=f"{nbytes_ / 1e6:.1f}", ms=f"{ms:.4f}",
-        device_ms_of_detect_profile=f"{dms:.4f}", tflops_device=f"{ops / dms / 1e9:.2f}",
+        device_ms=f"{dms:.4f}", tflops_device=f"{ops / dms / 1e9:.2f}",
         plain_ms=f"{plain:.4f}", library_conv2d_ms=f"{library:.4f}",
         bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
         fp32_bound_ms=f"{bnd['fp32_bound_ms']:.4f}",
@@ -642,18 +669,18 @@ def profile_person26(torch, det, im, wall_ms: float, reps: int = 3,
     """torch.profiler over `reps` person26 VGA detects: device time per
     image by kernel family and for the busiest kernels, and the idle
     share against the unprofiled wall time `wall_ms` (the profiler's own
-    host cost inflates the profiled one). Returns the families."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    host cost inflates the profiled one), from a window that recorded
+    every hand-kernel launch. Returns the families."""
+    before = launch_counts()
+    with window() as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             det.detect(im)
         torch.cuda.synchronize()
-    profiled = (time.perf_counter() - t0) * 1e3 / reps
+        wall = (time.perf_counter() - t0) * 1e3 / reps
     got = device_profile(prof, reps)
-    log(phase, profiled_wall_ms_per_image=f"{profiled:.3f}",
+    require_launches(got, launches_since(before))
+    log(phase, profiled_wall_ms_per_image=f"{wall:.3f}",
         device_busy_ms_per_image=f"{got['busy']:.3f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - got['busy'] / wall_ms):.3f}",
         device_ops_per_image=f"{got['ops']:.0f}",
@@ -736,7 +763,8 @@ def check_dt_bwd(torch, dt_cuda, kernels, gen) -> dict:
     xargs, xlay = case("p26_240x320_x_aux", 8 * 10 * 4, 86, 66, 86, aux=True)
     pair = lambda: (dt_cuda.dt1d_bwd(*yargs), dt_cuda.dt1d_bwd(*xargs))
     ms = cuda_ms(pair, reps=20)
-    dev_ms = statistics.median(device_ms(pair, reps=20) for _ in range(3))
+    dev_ms = statistics.median(device_ms(pair, reps=20, launches={"dt1d_bwd": 2})
+                               for _ in range(3))
     plain = cuda_ms(lambda: dt_cuda.dt1d_bwd_plain(*yargs), reps=20)
     plain += cuda_ms(lambda: dt_cuda.dt1d_bwd_plain(*xargs), reps=20)
     # per output: d, g*d, g*d*d and three sums, ~6 FP32 operations; g,
@@ -848,21 +876,15 @@ def profile_train_step(torch, ctx, wall_ms: float) -> None:
     """torch.profiler over one train step (device busy ms, the idle
     share against the unprofiled median step, the DT kernels' ms), then
     over the forward alone of the same batch, so that the backward's
-    share is the difference."""
-    from torch.profiler import ProfilerActivity, profile
-
+    share is the difference; each window recorded every hand-kernel
+    launch."""
     step, loss_fn, params, opt, imgs, masks, labels = ctx
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        step(params, opt, imgs, masks, labels)
-        torch.cuda.synchronize()
-    whole = device_profile(prof)
-    with profile(activities=acts) as prof:
+    def fwd():
         for i, y in enumerate(labels):
             loss_fn.margin_violation(params, imgs[i], float(y), [m[i] for m in masks])
-        torch.cuda.synchronize()
-    fwd = device_profile(prof)
+
+    whole = profiled(lambda: step(params, opt, imgs, masks, labels))
+    fwd = profiled(fwd)
     log("train_profile", device_busy_ms_per_step=f"{whole['busy']:.3f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - whole['busy'] / wall_ms):.3f}",
         device_ops_per_step=f"{whole['ops']:.0f}",
@@ -1259,36 +1281,25 @@ def check_dt_window(torch, dt_cuda, variants, gen, det, im) -> dict:
     # device ops the profiler would add): the launches on flat arguments
     k5_alone = lambda: [dt_cuda._dt1d_window_cuda(*p) for p in (yargs, xargs)]
     k1_alone = lambda: [dt_cuda._dt1d_cuda(*p[:5], p[6], 1, p[7]) for p in (yargs, xargs)]
-    def profiled(run):
-        """The profiler's device ms of run() (two bare launches), from a
-        pass that recorded both kernels of every call, or None: late in
-        this process the profiler has lost kernel events (PERF.md)."""
-        for _ in range(3):
-            got = profile_device(torch, lambda: [run() for _ in range(10)], 10)
-            if got["ops"] == 2:
-                return got["busy"]
-        return None
-
     # in turns, as the kernels and the plain version share the card;
-    # device time (profiler) beside the wrappers' event time, and events
-    # around the bare launches (each takes tens of us, more than the host
-    # needs to launch it)
+    # device time (profiler, windows that recorded every launch) beside
+    # the wrappers' event time, and events around the bare launches (each
+    # takes tens of us, more than the host needs to launch it)
     ms, k1_ms, plain_ms, dev_ms, k1_dev, bare, k1_bare = ([] for _ in range(7))
     for _ in range(3):
         ms.append(cuda_ms(k5, reps=10))
         k1_ms.append(cuda_ms(k1, reps=10))
-        dev_ms.append(profiled(k5_alone))
-        k1_dev.append(profiled(k1_alone))
+        dev_ms.append(profiled(lambda: [k5_alone() for _ in range(10)], 10)
+                      ["families"]["dt1d_window"])
+        k1_dev.append(profiled(lambda: [k1_alone() for _ in range(10)], 10)
+                      ["families"]["dt1d"])
         bare.append(cuda_ms(k5_alone, reps=10))
         k1_bare.append(cuda_ms(k1_alone, reps=10))
         plain_ms.append(cuda_ms(plain, reps=3))
     shape = (f"y{tuple(yargs[0].shape)}+x_aux{tuple(xargs[0].shape)}")
     ms, k1_ms, plain_ms = min(ms), min(k1_ms), min(plain_ms)
-    complete = lambda t: statistics.median(x for x in t if x is not None) if any(
-        x is not None for x in t) else None
-    dev_ms, k1_dev = complete(dev_ms), complete(k1_dev)
+    dev_ms, k1_dev = statistics.median(dev_ms), statistics.median(k1_dev)
     bare, k1_bare = statistics.median(bare), statistics.median(k1_bare)
-    fmt = lambda x: "lost" if x is None else f"{x:.4f}"
     inside = sum(c[0] for c in cases[-2:])
     dont = sum(c[1] for c in cases[-2:])
     # the chunk prune makes the scan data-dependent: count the least
@@ -1299,8 +1310,8 @@ def check_dt_window(torch, dt_cuda, variants, gen, det, im) -> dict:
     bnd = bound(moved, 5.0 * inside)
     log("dt1d_window", cases=len(cases), exact=True, max_abs_err=0.0,
         shape=shape, p26_outputs_exact=inside, p26_outputs_dont_care=dont,
-        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", device_ms=fmt(dev_ms),
-        k1_device_ms=fmt(k1_dev), bare_launch_ms=f"{bare:.4f}",
+        ms=f"{ms:.4f}", k1_ms=f"{k1_ms:.4f}", device_ms=f"{dev_ms:.4f}",
+        k1_device_ms=f"{k1_dev:.4f}", bare_launch_ms=f"{bare:.4f}",
         k1_bare_launch_ms=f"{k1_bare:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
         library_ms=None)
@@ -1497,9 +1508,8 @@ def count_dt_glue(torch, dt_cuda, dtm, det, im) -> None:
         det.detect(im)
     finally:
         dt_cuda.flatten_maps, dp.shift_distance_transform_2d_packed = orig_flat, orig_dt
-    flat = profile_device(torch, lambda: [orig_flat(*c) for c in flat_calls], 1)
-    neg = profile_device(
-        torch, lambda: [-w[..., k] for w in wdefs for k in range(4)], 1)
+    flat = profiled(lambda: [orig_flat(*c) for c in flat_calls], 1)
+    neg = profiled(lambda: [-w[..., k] for w in wdefs for k in range(4)], 1)
     log("dt_glue", flatten_maps_calls=len(flat_calls),
         flatten_maps_device_ops=f"{flat['ops']:.0f}",
         flatten_maps_device_ms=f"{flat['busy']:.4f}",
@@ -1579,6 +1589,8 @@ def check_transpose(torch, np, tc, dtm, gen, det, im) -> dict:
         "two_singles": lambda: (tc.transpose_last2(x), tc.transpose_last2(y)),
         "two_plain": lambda: tc.transpose_last2_pair_plain(x, y),
     }
+    # T2 launches per call of each run, which its device windows must hold
+    t2 = {"kernel": 1, "pair": 1, "two_singles": 2}
     # in turns. Event times (the least of three) include the gaps between
     # launches, which at these sizes are the host's; device times (the
     # median of three) are the profiler's, kernels and copies only.
@@ -1587,18 +1599,16 @@ def check_transpose(torch, np, tc, dtm, gen, det, im) -> dict:
     for _ in range(3):
         for k, run in runs.items():
             event[k].append(cuda_ms(run, reps=50))
-            device[k].append(device_ms(run, reps=50))
+            device[k].append(device_ms(run, reps=50, launches={"transpose": t2.get(k, 0)}))
     event = {k: min(v) for k, v in event.items()}
     device = {k: statistics.median(v) for k, v in device.items()}
     ms, plain = event["kernel"], event["plain"]
     bnd = bound(2 * nbytes(x), 0.0)
     # one detect's transposes, device time from the profiler (events
     # around 100 launches would time the host's launch loop)
-    det_ms = profile_device(
-        torch, lambda: [tc.transpose_last2_pair(cx, cy) for cx, cy in caps],
+    det_ms = profiled(lambda: [tc.transpose_last2_pair(cx, cy) for cx, cy in caps],
         1)["busy"]
-    det_plain = profile_device(
-        torch, lambda: [tc.transpose_last2_pair_plain(cx, cy) for cx, cy in caps],
+    det_plain = profiled(lambda: [tc.transpose_last2_pair_plain(cx, cy) for cx, cy in caps],
         1)["busy"]
     det_bound = bound(2 * nbytes(*(c for pair_ in caps for c in pair_)), 0.0)["bound_ms"]
     log("transpose", cases=3 * len(shapes) + 1, exact=True, gradient_exact=True,
@@ -1634,18 +1644,6 @@ def close_candidates(a, b) -> bool:
         and (x.mixtures == y.mixtures).all()
         for x, y in zip(a, b)
     )
-
-
-def profile_device(torch, run, per: int) -> dict:
-    """device_profile of one torch.profiler pass over run(), per `per`
-    images."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return device_profile(prof, per)
 
 
 def pyramid_batch_invariant(torch, np, frames) -> int:
@@ -1717,8 +1715,8 @@ def check_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
     pipe_ips.append(64 / timed_run(torch,
         lambda: det.detect_many(frames, prefetch=6, readback_top=64))[1])
     mb8_ips.append(64 / timed_run(torch, lambda: det.detect_many(frames, microbatch=8))[1])
-    p1 = profile_device(torch, lambda: det.detect_many(frames[:8]), 8)
-    p8 = profile_device(torch, lambda: det.detect_many(frames[:8], microbatch=8), 8)
+    p1 = profiled(lambda: det.detect_many(frames[:8]), 8)
+    p8 = profiled(lambda: det.detect_many(frames[:8], microbatch=8), 8)
     log("serving", frames="64 distinct uint8 " + "x".join(map(str, im.shape[:2])),
         buckets_per_octave=2,
         candidates_frame0=len(want[0]), match_first_8="microbatch 8 and pipelined",
@@ -2277,7 +2275,7 @@ def check_nms(torch, np, pbd, nms, im, card) -> None:
     for b in (1, 8):
         args = (boxes[:b], scores[:b], valid[:b], 0.3)
         per_image[b] = cuda_ms(lambda: nms.part_nms_device(*args), reps=5) / b
-        busy[b] = profile_device(torch, lambda: nms.part_nms_device(*args), b)
+        busy[b] = profiled(lambda: nms.part_nms_device(*args), b)
 
     keep = nms.part_nms_device(boxes, scores, valid, 0.3)
     for i in range(8):
@@ -2315,7 +2313,8 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
     (one 3xTF32 core, csrc/conv_core.cuh); ms at each toh beside K2,
     conv2d and the plain version, in turns; then one run of the harness
     itself, `python -m partsbaseddetector_tpu_torch.tools.conv_proto`,
-    whose launch count and profiler device time (toh 2) are the row's."""
+    whose launch count is the row's; the row's device time is T1's at
+    toh 2 in this process."""
     dev = DEVICE
     s, f, h, w = 5, 104, 126, 166
     feat_np, filt_np = harness.seeded_inputs(s, h, w, f)
@@ -2365,10 +2364,10 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     if not res.get("equal_to_k2") or res.get("launches") != 1:
         raise AssertionError(f"conv_proto harness: {res}")
-    # the kernel's device time at toh 2 from the harness's own process: in
-    # this one, after the phases before it, the profiler has read no T1
-    # kernel time, while a fresh process reads it
-    dms = res["device_ms"]
+    # the kernel's device time at toh 2 in this process, from windows that
+    # recorded every launch; the harness's own process's beside it
+    dms = device_ms(lambda: cp.conv_proto(feat_t, w2, f, 2), reps=20,
+                    launches={"conv": 1})
     tflops = lambda t: ops / t / 1e9
     log("conv_proto", shape="(5,126,166,32)x(104,5,5,32)", seed="RandomState(0)",
         equal_to_k2="bit for bit at toh 1,2,4,8",
@@ -2380,8 +2379,8 @@ def check_conv_proto(torch, cp, conv_cuda, harness) -> dict:
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
         bound_by=bnd["bound_by"], fp32_bound_ms=f"{bnd['fp32_bound_ms']:.4f}",
         toh2_device_ms=f"{dms:.4f}", gflop=f"{ops / 1e9:.3f}",
-        harness=f"rc 0, toh 2 {res['ms']:.4f} ms, K2 {res['k2_ms']:.4f} ms, "
-                f"conv2d {res['conv2d_ms']:.4f} ms")
+        harness=f"rc 0, toh 2 {res['ms']:.4f} ms, device {res['device_ms']:.4f} ms, "
+                f"K2 {res['k2_ms']:.4f} ms, conv2d {res['conv2d_ms']:.4f} ms")
     return {"launches": res["launches"], "max_abs_err": max(errs.values()),
             "ms": ms[2], "device_ms": dms, "ms_by_toh": ms, "k2_ms": k2_ms,
             "plain_ms": plain_ms, **bnd, "library_ms": lib_ms}
@@ -2420,8 +2419,11 @@ def check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
     thresh -1e9, 16 detections, the top-1 boxes within 0.75 px and its
     score within 1e-3 of f32, at least 80% of the candidates
     box-matched); rerank_fp32=True at f32 equal to plain f32 (scores
-    2e-5, parts 1e-4); a profile, and the re-score stage's device time
-    alone on the inputs a detect gave it."""
+    2e-5, parts 1e-4); a profile, and the re-score stage's time by CUDA
+    events alone on the inputs a detect gave it: it launches torch's
+    kernels only, with no counter to hold a profiler window to, and late
+    in the process torch.profiler drops such windows' records (PERF.md
+    §6)."""
     import partsbaseddetector_tpu_torch.detector as detector_mod
 
     bf16 = torch.bfloat16
@@ -2474,7 +2476,7 @@ def check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
         raise AssertionError("hybrid: the f32 re-rank differs from plain f32")
     rr_dscore = max(abs(x.score - y.score) for x, y in zip(rr32, plain32))
 
-    prof = profile_device(torch, lambda: [hdet.detect(im) for _ in range(3)], 3)
+    prof = profiled(lambda: [hdet.detect(im) for _ in range(3)], 3)
     calls = []
     orig = detector_mod.rescore_from_responses
 
@@ -2488,7 +2490,7 @@ def check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
     finally:
         detector_mod.rescore_from_responses = orig
     args, kwargs = calls[0]
-    stage = profile_device(torch, lambda: orig(*args, **kwargs), 1)
+    stage_ms = cuda_ms(lambda: orig(*args, **kwargs), reps=5)
     del calls, args, kwargs
     ms, ms32 = statistics.median(hy), statistics.median(f32)
     log("hybrid", imsize="x".join(map(str, im.shape[:2])), buckets_per_octave=2,
@@ -2505,9 +2507,7 @@ def check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> dict:
         device_busy_ms_per_image=f"{prof['busy']:.3f}",
         device_ops_per_image=f"{prof['ops']:.0f}",
         idle_share_vs_unprofiled=f"{max(0.0, 1 - prof['busy'] / ms):.3f}",
-        rescore_device_ms=f"{stage['busy']:.4f}",
-        rescore_device_ops=f"{stage['ops']:.0f}",
-        rescore_share_of_busy=f"{stage['busy'] / prof['busy']:.4f}",
+        rescore_event_ms=f"{stage_ms:.4f}",
         card=f"'{card}'")
     log("hybrid_profile", **{f"{k}_ms": f"{v:.3f}" for k, v in prof["families"].items()},
         top=prof["top"])
@@ -2554,7 +2554,7 @@ def check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> No
         mb8_peak_device_bytes=peak, card=f"'{card}'")
 
 
-def require_launches(phase: str, counts: dict, launched=(), zero=()) -> None:
+def require_counts(phase: str, counts: dict, launched=(), zero=()) -> None:
     """Fail the phase unless every kernel in `launched` ran at least
     once and none in `zero` ran."""
     if any(counts[k] <= 0 for k in launched) or any(counts[k] for k in zero):
@@ -2612,7 +2612,7 @@ def check_parallel(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc, im, card) 
             got = fn(frames)
             torch.cuda.synchronize()
             counts = mine_counts(dt_cuda, conv_cuda, tc)
-            require_launches(f"parallel_{engine}", counts,
+            require_counts(f"parallel_{engine}", counts,
                              ("dt1d", "dt1d_aux", "transpose")
                              + (("conv",) if engine == "spatial" else ()))
             for g, w in zip(got, want):
@@ -2661,7 +2661,7 @@ def check_parallel(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc, im, card) 
             rlosses.append(float(rl))
             secs.append(ss)
             rsecs.append(rs)
-        require_launches("parallel_train", tcounts, ("dt1d", "dt1d_bwd"))
+        require_counts("parallel_train", tcounts, ("dt1d", "dt1d_bwd"))
         for a, b in zip(losses, rlosses):
             if abs(a - b) > TRAIN_TOL["rtol"] * abs(b) or not math.isfinite(a):
                 raise AssertionError(f"parallel_train: loss {a} against {b}")
@@ -2712,7 +2712,7 @@ def check_bf16_plain(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card) -> d
     first = pdet.detect(im)
     torch.cuda.synchronize()
     counts = mine_counts(dt_cuda, conv_cuda, tc)
-    require_launches("bf16_plain", counts, ("dt1d", "dt1d_aux", "transpose"), ("conv",))
+    require_counts("bf16_plain", counts, ("dt1d", "dt1d_aux", "transpose"), ("conv",))
     if not first or not all(np.isfinite(c.score) and np.isfinite(c.parts).all()
                             and c.parts.shape == (26, 4) for c in first):
         raise AssertionError("bf16_plain: no candidates, or malformed ones")
@@ -2792,7 +2792,7 @@ def check_bf16_mine(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card) -> dict:
     zero_counts(dt_cuda, conv_cuda, tc)
     d16, _ = timed_mine(torch, m16, frame)
     counts = mine_counts(dt_cuda, conv_cuda, tc)
-    require_launches("bf16_mine", counts, ("dt1d", "dt1d_aux", "transpose"), ("conv",))
+    require_counts("bf16_mine", counts, ("dt1d", "dt1d_aux", "transpose"), ("conv",))
     if not d16 or not same_placements(np, d16, timed_mine(torch, m16, frame)[0]):
         raise AssertionError("bf16_mine: no placements, or two mines differ")
     t16, t32 = [], []
@@ -2879,7 +2879,7 @@ def check_fourier_train(torch, np, pbd, pbd_train, dt_cuda, conv_cuda, tc, card)
                                 "fourier", 2)
     counts = {"dt1d": dt_cuda.launches, "dt1d_bwd": dt_cuda.bwd_launches,
               "conv": conv_cuda.launches, "transpose": tc.launches}
-    require_launches("fourier_train", counts, ("dt1d", "dt1d_bwd", "transpose"), ("conv",))
+    require_counts("fourier_train", counts, ("dt1d", "dt1d_bwd", "transpose"), ("conv",))
     sl, sg, _, _ = engine_steps(torch, np, pbd_train, model, packed, small, 2, DEVICE,
                                 "spatial", 2)
     cl, cg, _, _ = engine_steps(torch, np, pbd_train, model, packed, small, 2, "cpu",
@@ -2932,7 +2932,7 @@ def check_examples(torch, np, dt_cuda, conv_cuda, tc, card) -> dict:
     with contextlib.redirect_stdout(io.StringIO()) as rgbd_out:
         frames, rgbd_s = timed_run(torch, lambda: rgbd_serving_demo.main(["--device", DEVICE]))
     rgbd = mine_counts(dt_cuda, conv_cuda, tc)
-    require_launches("examples_rgbd", rgbd, ("dt1d", "conv", "transpose"))
+    require_counts("examples_rgbd", rgbd, ("dt1d", "conv", "transpose"))
     ncand = [len(f.candidates) for f in frames]
     if len(frames) != 3 or not sum(ncand):
         raise AssertionError(f"examples: the RGB-D demo gave {ncand} candidates")
@@ -2941,7 +2941,7 @@ def check_examples(torch, np, dt_cuda, conv_cuda, tc, card) -> dict:
         (model, pck), train_s = timed_run(
             torch, lambda: training_demo.main(["--fast", "--device", DEVICE]))
     train = mine_counts(dt_cuda, conv_cuda, tc)
-    require_launches("examples_training", train, ("dt1d", "conv"))
+    require_counts("examples_training", train, ("dt1d", "conv"))
     model.validate()
     if float(np.min(pck)) < 0.5:
         raise AssertionError(f"examples: the training demo's PCK is {pck}")
@@ -2981,7 +2981,7 @@ def check_face(torch, np, pbd, conv, conv_cuda, pipeline, dt_cuda, tc, im, card)
         first = det.detect(im)
         torch.cuda.synchronize()
         counts = mine_counts(dt_cuda, conv_cuda, tc)
-        require_launches(name, counts, ("dt1d", "dt1d_aux", "conv", "transpose"))
+        require_counts(name, counts, ("dt1d", "dt1d_aux", "conv", "transpose"))
         if not first or not all(np.isfinite(c.score) and np.isfinite(c.parts).all()
                                 and c.parts.shape == (nparts, 4) for c in first):
             raise AssertionError(f"{name}: no candidates, or malformed ones")
@@ -2990,8 +2990,8 @@ def check_face(torch, np, pbd, conv, conv_cuda, pipeline, dt_cuda, tc, im, card)
         times = [timed_detect(torch, det, im) for _ in range(7)]
         ms = statistics.median(times)
         families = profile_person26(torch, det, im, ms, phase=f"{name}_profile")
-        k2 = check_conv_detect(torch, conv, conv_cuda, pipeline, det, im,
-                               families["conv"], card, phase=f"{name}_conv")
+        k2 = check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, card,
+                               phase=f"{name}_conv", dms=families["conv"])
         small = im[:120, :160]
         kw = dict(buckets_per_octave=1, max_detections=32)
         want = pbd.PartsBasedDetector(model, device="cpu", **kw).detect(small)
@@ -3050,8 +3050,145 @@ def check_bench(torch, card) -> None:
         headline_images_per_s=head["value"], card=f"'{card}'")
 
 
+LONE_WINDOWS = 20
+
+
+def check_lone_launches(torch, dt_cuda, conv_cuda, tc, cp, harness, variants, det, im,
+                        card) -> dict:
+    """LONE_WINDOWS profiler windows of one bare launch each (a wrapper's
+    launch on flat arguments, without its tensor code) of K1, K3's x
+    pass, K2, K4, K5, T2 and T1 at the kernel table's shapes: every
+    window must record its one kernel event (utils/profiling.py::
+    profiled). Beside the profiler's reading, CUDA events recorded tight
+    around LONE_WINDOWS bare launches of each. Returns each kernel's
+    median device ms and median event ms."""
+    dev = DEVICE
+    gen = torch.Generator().manual_seed(15)
+
+    def maps(bsz, h, w, aux=False):
+        src = 3 * torch.randn((bsz, h, w), generator=gen)
+        a = -(0.01 + 0.05 * torch.rand((bsz,), generator=gen))
+        b = 0.3 * torch.randn((bsz,), generator=gen)
+        shift = torch.randint(-3, 4, (bsz,), generator=gen).float()
+        nvalid = torch.full((bsz,), h, dtype=torch.int32)
+        ax = torch.randint(0, 4096, (bsz, h, w), generator=gen, dtype=torch.int32)
+        return [t.to(dev) for t in (src, a, b, shift, nvalid)] + [
+            ax.to(dev) if aux else None]
+
+    y, x, yb = maps(80, 126, 166), maps(80, 166, 126, aux=True), maps(320, 66, 86)
+    out, ptr = dt_cuda._dt1d_cuda(*yb[:5], 66, 1, None)
+    g = torch.randn(tuple(out.shape), generator=gen).to(dev)
+    feat = torch.rand((5, 130, 170, 32), generator=gen).to(dev)
+    filt = (0.1 * torch.randn((104, 5, 5, 32), generator=gen)).to(dev)
+    bank = conv_cuda.split_bank(filt)
+    win_y, _ = variants.window_passes(torch, det, im)
+    t = torch.randn((80, 126, 166), generator=gen).to(dev)
+    feat_np, filt_np = harness.seeded_inputs(5, 126, 166, 104)
+    feat_t = torch.as_tensor(feat_np, device=dev).permute(0, 1, 3, 2).contiguous()
+    w2 = cp.weights_k_major(torch.as_tensor(filt_np, device=dev))
+    runs = {
+        "K1": (lambda: dt_cuda._dt1d_cuda(*y[:5], 126, 1, None), "dt1d"),
+        "K3": (lambda: dt_cuda._dt1d_cuda(*x[:5], 166, 1, x[5]), "dt1d_aux"),
+        "K2": (lambda: conv_cuda._grouped_cuda([feat], filt, bank), "conv"),
+        "K4": (lambda: dt_cuda._dt1d_bwd_cuda(g, out, ptr, yb[3], 66, 1, False),
+               "dt1d_bwd"),
+        "K5": (lambda: dt_cuda._dt1d_window_cuda(*win_y), "dt1d_window"),
+        "T2": (lambda: tc._transpose_cuda(t), "transpose"),
+        "T1": (lambda: cp._conv_proto_cuda(feat_t, w2, 104, 2, 5, 5), "conv"),
+    }
+    dms, ems = {}, {}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for name, (run, fam) in runs.items():
+        run()
+        events, times, event_times = 0, [], []
+        for _ in range(LONE_WINDOWS):
+            got = profiled(run)
+            if got["launches"][fam] != 1:
+                raise AssertionError(f"lone_launches {name}: {got['launches']}")
+            events += got["launches"][fam]
+            times.append(got["families"]["dt1d" if fam == "dt1d_aux" else fam])
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            event_times.append(start.elapsed_time(end))
+        dms[name], ems[name] = statistics.median(times), statistics.median(event_times)
+        log("lone_launch", kernel=name, family=fam, windows=LONE_WINDOWS,
+            events=events, device_ms=f"{dms[name]:.4f}",
+            device_ms_min_max=f"{min(times):.4f},{max(times):.4f}",
+            event_ms=f"{ems[name]:.4f}")
+    log("lone_launches", windows_per_kernel=LONE_WINDOWS, complete=True,
+        **{f"{k}_device_ms": f"{v:.4f}" for k, v in dms.items()},
+        **{f"{k}_event_ms": f"{v:.4f}" for k, v in ems.items()}, card=f"'{card}'")
+    return {"device_ms": dms, "event_ms": ems}
+
+
+def lone_launches_process(card) -> dict:
+    """Phase 28 in a new process, `python3 chip_smoke.py --lone-launches`,
+    started after the bench: in this process, after every earlier phase,
+    torch.profiler dropped the record of the first lone window (PERF.md
+    §6), which check_lone_launches refuses. Its lines go to this stdout;
+    returns its result."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--lone-launches"],
+                          capture_output=True, text=True, cwd=ROOT, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0:
+        print("\n".join(lines), flush=True)
+        raise AssertionError(f"lone_launches: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    print("\n".join(lines[:-1]), flush=True)
+    log("lone_launches_process", seconds=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+    return json.loads(lines[-1])
+
+
+def check_dt_public(torch, dtm, card) -> None:
+    """ops.shift_distance_transform_2d and ops.distance_transform_2d on
+    the card (K1, K3's x pass and T2) against the same calls on the CPU
+    (their plain versions) at person26 VGA's finest bucket, 4 parts x 5
+    scales x 4 mixtures of 126x166 maps with per-part, per-mixture
+    weights and shifts (steps 1 and 2, and the anchored same-size grid):
+    values and pointers bit for bit, and (Ix, Iy) the fields of the
+    packed pointers."""
+    gen = torch.Generator().manual_seed(16)
+    score = 3 * torch.randn((4, 5, 4, 126, 166), generator=gen)
+    wdef = 0.01 + 0.05 * torch.rand((4, 1, 4, 4), generator=gen)
+    wdef[..., 1::2] = 0.02 * torch.randn((4, 1, 4, 2), generator=gen)
+    sx = torch.randint(-3, 4, (4, 1, 4), generator=gen)
+    sy = torch.randint(-3, 4, (4, 1, 4), generator=gen)
+    # (name, shift_x, shift_y, dlen_x, dlen_y, step); "anchored" is
+    # distance_transform_2d's grid
+    cases = [("shift_step1", sx, sy, 160, 120, 1), ("shift_step2", sx, sy, 83, 63, 2),
+             ("anchored", sy, sx, 166, 126, 1)]
+    for name, shx, shy, dlx, dly, step in cases:
+        def call(dev):
+            args = (score.to(dev), wdef.to(dev), shx, shy)
+            if name == "anchored":
+                return dtm.distance_transform_2d(*args)
+            return dtm.shift_distance_transform_2d(*args, dlx, dly, step)
+
+        before = launch_counts()
+        got = call(DEVICE)
+        torch.cuda.synchronize()
+        counted = launches_since(before)
+        if counted["dt1d"] != 2 or counted["dt1d_aux"] != 1 or counted["transpose"] != 2:
+            raise AssertionError(f"dt_public {name}: launches {counted}")
+        want = call("cpu")
+        for what, gv, wv in zip(("values", "Ix", "Iy"), got, want):
+            if gv.shape != wv.shape or not torch.equal(gv.cpu(), wv):
+                raise AssertionError(f"dt_public {name}: {what} differ from the CPU path")
+        _, packed = dtm.shift_distance_transform_2d_packed(
+            score.to(DEVICE), wdef.to(DEVICE), shx, shy, dlx, dly, step)
+        if not (torch.equal(got[1], packed & 0xFFF) and torch.equal(got[2], packed >> 12)):
+            raise AssertionError(f"dt_public {name}: (Ix, Iy) are not the packed fields")
+    log("dt_public", shape="(4,5,4,126,166)", cases=",".join(c[0] for c in cases),
+        equal_to_cpu="values and pointers bit for bit",
+        launches_per_call="K1 2 (K3 1), T2 2", card=f"'{card}'")
+
+
 def main() -> int:
-    global cuda_ms, device_ms, device_profile
+    global cuda_ms, device_ms, device_profile, profiled, launch_counts, launches_since
+    global require_launches, window
     try:
         import torch
     except ImportError:
@@ -3074,7 +3211,8 @@ def main() -> int:
         from partsbaseddetector_tpu_torch.ops import distance_transform as dtm
         from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
         from partsbaseddetector_tpu_torch.utils.profiling import (
-            cuda_ms, device_ms, device_profile)
+            cuda_ms, device_ms, device_profile, launch_counts, launches_since, profiled,
+            require_launches, window)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -3084,6 +3222,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
+    if sys.argv[1:] == ["--lone-launches"]:
+        kernels.library()
+        print(json.dumps(check_lone_launches(torch, dt_cuda, conv_cuda, tc, cp, harness,
+                                             variants, None, None, card)))
+        return 0
     name = torch.cuda.get_device_name(0)
     log("device", name=f"'{name}'", nvidia_smi=f"'{card}'",
         torch=torch.__version__, cuda=torch.version.cuda)
@@ -3106,15 +3249,17 @@ def main() -> int:
     counts, ms, det, im = check_person26(
         torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card
     )
-    families = profile_person26(torch, det, im, ms)
-    conv_row = check_conv_detect(torch, conv, conv_cuda, pipeline, det, im,
-                                 families["conv"], card)
+    # the phases whose profiler windows hold a few launches each
+    conv_row = check_conv_detect(torch, conv, conv_cuda, pipeline, det, im, card)
     count_dt_glue(torch, dt_cuda, dtm, det, im)
     tp_row = check_transpose(torch, np, tc, dtm, gen, det, im)
     bwd_row = check_dt_bwd(torch, dt_cuda, kernels, gen)
+    win_row = check_dt_window(torch, dt_cuda, variants, gen, det, im)
+    t1_row = check_conv_proto(torch, cp, conv_cuda, harness)
+    check_nms(torch, np, pbd, nms, im, card)
+    profile_person26(torch, det, im, ms)
     train = check_train(torch, np, pbd, pbd_train, dt_cuda, card)
     mine = check_mine(torch, np, pbd, dt_cuda, conv_cuda, tc, gen, card)
-    win_row = check_dt_window(torch, dt_cuda, variants, gen, det, im)
     win = check_window_detect(torch, dt_cuda, conv_cuda, det, im, card)
     with window_dt(True):
         profile_person26(torch, det, im, win["ms"], phase="window_profile")
@@ -3127,8 +3272,6 @@ def main() -> int:
     have_pil = importlib.util.find_spec("PIL") is not None
     surf = check_surfaces(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card,
                           have_yaml, have_pil)
-    check_nms(torch, np, pbd, nms, im, card)
-    t1_row = check_conv_proto(torch, cp, conv_cuda, harness)
     hybrid = check_hybrid(torch, np, pbd, dt_cuda, conv_cuda, tc, det, im, card)
     check_hybrid_serving(torch, np, pbd, dt_cuda, conv_cuda, tc, im, card)
     hyb = hybrid["counts"]
@@ -3140,6 +3283,8 @@ def main() -> int:
     ex = check_examples(torch, np, dt_cuda, conv_cuda, tc, card)
     face = check_face(torch, np, pbd, conv, conv_cuda, pipeline, dt_cuda, tc, im, card)
     check_bench(torch, card)
+    check_dt_public(torch, dtm, card)
+    lone = lone_launches_process(card)
     ps, pf, pt = par["spatial"]["counts"], par["fourier"]["counts"], par["train"]["counts"]
     exr, ext = ex["rgbd"], ex["training"]
     face_launches = lambda k: {m: face[m]["counts"][k] for m in face}
@@ -3157,7 +3302,9 @@ def main() -> int:
          "bf16_plain_launches": plain16["dt1d"], "bf16_mine_launches": mine16["dt1d"],
          "fourier_train_launches": ftrain["dt1d"],
          "examples_launches": {"rgbd": exr["dt1d"], "training": ext["dt1d"]},
-         "face_launches": face_launches("dt1d"), **dt_row},
+         "face_launches": face_launches("dt1d"), **dt_row,
+         "lone_launch_device_ms": lone["device_ms"]["K1"],
+         "lone_launch_event_ms": lone["event_ms"]["K1"]},
         # K3's row: the same kernel's x passes (the transposed map, aux),
         # counted where they launch
         {"name": "dt1d_axis2_xpass", "route": "cuda",
@@ -3170,7 +3317,9 @@ def main() -> int:
          "bf16_plain_launches": plain16["dt1d_aux"],
          "bf16_mine_launches": mine16["dt1d_aux"],
          "examples_launches": {"rgbd": exr["dt1d_aux"], "training": ext["dt1d_aux"]},
-         "face_launches": face_launches("dt1d_aux"), **xpass_row},
+         "face_launches": face_launches("dt1d_aux"), **xpass_row,
+         "lone_launch_device_ms": lone["device_ms"]["K3"],
+         "lone_launch_event_ms": lone["event_ms"]["K3"]},
         {"name": "conv3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
@@ -3184,17 +3333,21 @@ def main() -> int:
          "examples_launches": {"rgbd": exr["conv"], "training": ext["conv"]}, **conv_row,
          "face_launches": face_launches("conv"),
          "face_detects": {m: face[m]["k2"] for m in face},
-         "table_shape": conv_table},
+         "table_shape": conv_table, "lone_launch_device_ms": lone["device_ms"]["K2"],
+         "lone_launch_event_ms": lone["event_ms"]["K2"]},
         {"name": "dt1d_axis2_bwd", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_bwd.cu",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:809",
          "launches": train["launches"], "parallel_launches": {"train": pt["dt1d_bwd"]},
-         "fourier_train_launches": ftrain["dt1d_bwd"], **bwd_row},
+         "fourier_train_launches": ftrain["dt1d_bwd"], **bwd_row,
+         "lone_launch_device_ms": lone["device_ms"]["K4"],
+         "lone_launch_event_ms": lone["event_ms"]["K4"]},
         {"name": "dt1d_window_axis2", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/dt1d_window.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/dt1d_core.cuh",
          "replaces": "partsbaseddetector_tpu/ops/pallas_dt.py:321",
-         "launches": win["launches"], **win_row},
+         "launches": win["launches"], **win_row, "lone_launch_device_ms": lone["device_ms"]["K5"],
+         "lone_launch_event_ms": lone["event_ms"]["K5"]},
         {"name": "transpose32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/transpose.cu",
          "replaces": "tools/transpose_kernel_probe.py:25",
@@ -3206,12 +3359,16 @@ def main() -> int:
          "bf16_mine_launches": mine16["transpose"],
          "fourier_train_launches": ftrain["transpose"],
          "examples_launches": {"rgbd": exr["transpose"], "training": ext["transpose"]},
-         "face_launches": face_launches("transpose"), **tp_row},
+         "face_launches": face_launches("transpose"), **tp_row,
+         "lone_launch_device_ms": lone["device_ms"]["T2"],
+         "lone_launch_event_ms": lone["event_ms"]["T2"]},
         {"name": "conv_proto_3xtf32", "route": "cuda",
          "source": "partsbaseddetector_tpu_torch/csrc/conv_proto.cu",
          "core": "partsbaseddetector_tpu_torch/csrc/conv_core.cuh",
          "replaces": "tools/conv_pallas_proto.py:62",
-         "pallas_call": "tools/conv_pallas_proto.py:88", **t1_row},
+         "pallas_call": "tools/conv_pallas_proto.py:88", **t1_row,
+         "lone_launch_device_ms": lone["device_ms"]["T1"],
+         "lone_launch_event_ms": lone["event_ms"]["T1"]},
     ]}
     print(json.dumps(table))
     print(card)

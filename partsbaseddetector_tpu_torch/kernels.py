@@ -2,7 +2,8 @@
 
 Every `csrc/*.cu` file (with the `csrc/*.cuh` headers it includes) is
 compiled by `nvcc` into one shared library with
-a plain C interface, loaded with `ctypes`. The build runs at first use,
+a plain C interface, linked against the shared CUDA runtime and loaded
+with `ctypes`. The build runs at first use,
 into `build/torch_kernels/` at the root of the checkout, and is keyed on
 a hash of the sources and flags: a changed source builds a new library,
 an unchanged one is reused. Nothing is imported or built when this
@@ -22,10 +23,14 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+# -cudart shared: the library launches through the libcudart.so.12 that
+# `import torch` has loaded, whose stream handles the wrappers pass, not
+# through a private static copy of the runtime. It moved no detect time
+# and had no consistent effect on what the profiler records (PERF.md §6).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-cudart", "shared",
 )
 
 _P = ctypes.c_void_p
@@ -142,6 +147,9 @@ def library() -> ctypes.CDLL:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise if a launch returned a CUDA error code. The entries return
+    cudaGetLastError() of the runtime they share with torch, so the code
+    can also be an error that an earlier torch op left pending; it is
+    raised all the same, at the first launch after it."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -1,7 +1,9 @@
 """2-D generalized quadratic distance transform with packed pointers.
 
 Port of `partsbaseddetector_tpu/ops/distance_transform.py::
-shift_distance_transform_2d_packed`. Both separable passes run the 1-D
+shift_distance_transform_2d_packed`, and of its two public forms with
+unpacked pointers, `shift_distance_transform_2d` and the same-size
+anchored `distance_transform_2d`. Both separable passes run the 1-D
 kernel along axis -2 (ops/dt_cuda.py::dt1d): the y pass in place, then
 the x pass on the transposed intermediate with the y pointers carried
 as `aux`, which fuses the MATLAB/shiftdt composition Iy = tmpIy[Ix]
@@ -98,3 +100,34 @@ def shift_distance_transform_2d_packed(
         tmp_t, ax, bx, shift_x, dlen_x, nvalid=valid_w, aux=iy_t
     )
     return transpose_last2_pair(msg_t, ptr_t)
+
+
+def shift_distance_transform_2d(
+    score: torch.Tensor,
+    wdef,
+    shift_x,
+    shift_y,
+    dlen_x: int,
+    dlen_y: int,
+    step: int = 1,
+    valid_h=None,
+    valid_w=None,
+):
+    """As shift_distance_transform_2d_packed, but returning unpacked
+    (msg, Ix, Iy) 0-based source coordinates: the packed pointer's
+    ptr & 0xFFF and ptr >> 12. On CUDA maps it launches K1, K3's x pass
+    and T2; on CPU maps it runs their plain versions."""
+    msg, ptr = shift_distance_transform_2d_packed(
+        score, wdef, shift_x, shift_y, dlen_x, dlen_y, step, valid_h, valid_w
+    )
+    return msg, ptr & 0xFFF, ptr >> 12
+
+
+def distance_transform_2d(score: torch.Tensor, wdef, anchor_x, anchor_y):
+    """Same-size anchored DT, the C++ detect() grid
+    (src/DynamicProgram.cpp:124-128): output grid q = anchor + i, output
+    size equal to the input's. Returns (msg, Ix, Iy)."""
+    h, w = score.shape[-2], score.shape[-1]
+    return shift_distance_transform_2d(
+        score, wdef, anchor_x, anchor_y, dlen_x=w, dlen_y=h, step=1
+    )

@@ -197,7 +197,7 @@ def run_dt(torch, cuda_ms, device_ms, libs: dict) -> dict:
             for name, fn in fns.items():
                 run = lambda fn=fn: [call(fn, p, *buf) for p, buf in zip(passes, bufs)]
                 got = samples.setdefault(f"{name}/{kind}", {"device_ms": [], "event_ms": []})
-                got["device_ms"].append(device_ms(run, reps=20))
+                got["device_ms"].append(device_ms(run, reps=20, launches={"dt1d": 2}))
                 got["event_ms"].append(cuda_ms(run, reps=20))
         times.update(medians(samples))
     report("dt1d", times)
@@ -206,7 +206,10 @@ def run_dt(torch, cuda_ms, device_ms, libs: dict) -> dict:
 
 def medians(samples: dict) -> dict:
     """{key: {metric: [per turn]}} -> {key: {metric: median}}: the
-    profiler now and then loses events, so take the middle turn."""
+    middle turn. A hand kernel's window that lost events raises
+    (device_ms's launches), but torch's copies and the baseline's FP32
+    conv have no count to be held to, and the profiler now and then loses
+    a window's events (PERF.md §6)."""
     return {key: {k: statistics.median(v) for k, v in got.items()}
             for key, got in samples.items()}
 
@@ -288,6 +291,7 @@ def run_window(torch, cuda_ms, device_ms, libs: dict) -> dict:
     k1 = bind(kernels.library(), "pbd_dt1d_axis2_f32")
     k1_bufs = buffers()
     runs = {"k1": lambda: [launch(k1, p, *buf, False) for p, buf in zip(passes, k1_bufs)]}
+    families = {"k1": "dt1d"}
     runs["k1"]()
     for name, lib in libs.items():
         fn, bufs = bind(lib, "pbd_dt1d_window_axis2_f32"), buffers()
@@ -308,12 +312,13 @@ def run_window(torch, cuda_ms, device_ms, libs: dict) -> dict:
         if bad:
             print(f"[dt1d_window] {name} differs from {', '.join(bad)}: not timed", flush=True)
             continue
-        runs[name] = run
+        runs[name], families[name] = run, "dt1d_window"
     samples = {}
     for turn in range(3):
         for name, run in runs.items():
             got = samples.setdefault(name, {"device_ms": [], "event_ms": []})
-            got["device_ms"].append(device_ms(run, reps=20))
+            got["device_ms"].append(device_ms(run, reps=20,
+                                              launches={families[name]: len(passes)}))
             got["event_ms"].append(cuda_ms(run, reps=20))
     times = medians(samples)
     report("dt1d_window", times)
@@ -426,7 +431,7 @@ def run_bwd(torch, cuda_ms, device_ms, libs: dict) -> dict:
     for turn in range(3):
         for name, run in runs.items():
             got = samples.setdefault(name, {"device_ms": [], "event_ms": []})
-            got["device_ms"].append(device_ms(run, reps=20))
+            got["device_ms"].append(device_ms(run, reps=20, launches={"dt1d_bwd": len(cases)}))
             got["event_ms"].append(cuda_ms(run, reps=20))
     times = medians(samples)
     report("dt1d_bwd", times)
@@ -484,16 +489,18 @@ def run_transpose(torch, cuda_ms, device_ms, libs: dict, old_entry: set) -> dict
         }
         samples = {}
 
-        def keep(key, run):
+        def keep(key, run, launches=None):
             got = samples.setdefault(f"{key}/{maps}", {"device_ms": [], "event_ms": []})
-            got["device_ms"].append(device_ms(run, reps=50))
+            got["device_ms"].append(device_ms(
+                run, reps=50, launches=None if launches is None else {"transpose": launches}))
             got["event_ms"].append(cuda_ms(run, reps=50))
 
         for turn in range(3):
             for name, fn in fns.items():
-                keep(f"{name}/single", lambda: fn(x, xt, None, None))
-                keep(f"{name}/pair", lambda: fn(x, xt, y, yt))
-            for name, run in yard.items():
+                keep(f"{name}/single", lambda: fn(x, xt, None, None), 1)
+                # the single-array entry of earlier sources: a pair is two launches
+                keep(f"{name}/pair", lambda: fn(x, xt, y, yt), 2 if name in old_entry else 1)
+            for name, run in yard.items():  # torch's copies: no launch counter
                 keep(name, run)
         times.update(medians(samples))
         del x, y, xt, yt, dst, want_x, want_y
@@ -643,8 +650,14 @@ def run_conv(torch, cuda_ms, device_ms, libs: dict, proto_lib, baseline: set) ->
         samples = {}
         for turn in range(3):
             for name, run in runs.items():
+                # launches a call: one grouped, T1 one, else one a pair;
+                # the FP32 source of the baseline (conv_fp32_kernel) is
+                # in no family of the profiler's and goes unchecked
+                n = 1 if name == "conv_default_grouped" or name.startswith("conv_proto") \
+                    else len(pairs)
                 got = samples.setdefault(f"{name}/{case}", {"device_ms": [], "event_ms": []})
-                got["device_ms"].append(device_ms(run, reps=20))
+                got["device_ms"].append(device_ms(
+                    run, reps=20, launches=None if name in baseline else {"conv": n}))
                 got["event_ms"].append(cuda_ms(run, reps=20))
         times.update(medians(samples))
     report("conv", times)

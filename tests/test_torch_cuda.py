@@ -846,3 +846,26 @@ def test_world1_nccl_parallel_detect_and_train_step(cuda):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def test_profiled_windows_of_lone_launches_are_complete(cuda):
+    """utils/profiling.py::profiled: windows of one bare K1 launch, one
+    T2 launch and one torch kernel each record the launches the wrappers
+    counted (a lost event raises RuntimeError), and device_ms with
+    launches= holds its window the same way."""
+    from partsbaseddetector_tpu_torch.ops import dt_cuda, transpose_cuda
+    from partsbaseddetector_tpu_torch.utils.profiling import device_ms, profiled
+
+    gen = torch.Generator().manual_seed(4)
+    src, a, b, sh = (t.to(cuda) for t in (
+        torch.randn((8, 40, 50), generator=gen), torch.full((8,), -0.05),
+        torch.zeros(8), torch.zeros(8)))
+    nv = torch.full((8,), 40, dtype=torch.int32, device=cuda)
+    x = torch.randn((8, 40, 50), generator=gen).to(cuda)
+    for _ in range(10):
+        got = profiled(lambda: dt_cuda._dt1d_cuda(src, a, b, sh, nv, 40, 1, None))
+        assert got["launches"]["dt1d"] == 1 and got["families"]["dt1d"] > 0
+        assert profiled(lambda: transpose_cuda._transpose_cuda(x))["launches"]["transpose"] == 1
+        assert profiled(lambda: x.add_(1.0))["launches"]["transpose"] == 0
+    assert device_ms(lambda: transpose_cuda.transpose_last2(x), reps=5,
+                     launches={"transpose": 1}) > 0

@@ -2,7 +2,8 @@
 training, the surfaces, parallel/, the examples and the bench entry
 point included, and chip_smoke.py), nor need PyYAML
 or PIL to import (the card's machine may lack them: only reading .yml
-models, parse_config and the demo's image I/O use them, at call time).
+models, parse_config and the demo's image I/O use them, at call time),
+nor build or load a kernel library when imported (`ops` included).
 
 Runs in a subprocess: this test process has jax loaded (conftest.py
 imports it). The subprocess drops any such module already loaded and
@@ -52,6 +53,13 @@ SCRIPT = textwrap.dedent(
         assert pkg.__name__ + "." + mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not loaded, loaded
+    from partsbaseddetector_tpu_torch import kernels
+
+    # nothing built or loaded: the kernels build at their first launch
+    assert kernels._lib is None
+    with open("/proc/self/maps") as maps:
+        mapped = [ln for ln in maps if "torch_kernels" in ln or "libpbd_kernels" in ln]
+    assert not mapped, mapped
     assert "partsbaseddetector_tpu" not in sys.modules
     assert pkg.CPUPartsBasedDetector and pkg.Visualize
     from partsbaseddetector_tpu_torch import parallel
