@@ -1,0 +1,212 @@
+"""BENCHMARK.json and the files it names, found by name.
+
+A cell (an entry of `workloads`) names a configuration and a traffic mix;
+each metric names its reader. They are found so:
+
+    configuration  the `file` of its entry in `configs` (JSON)
+    traffic mix    benchmark/traffic/<traffic>.json, whose "client" names
+                   benchmark/clients/<client>.py (lib/traffic.py)
+    limits         benchmark/limits/<workload>.json, the limit of each
+                   number that the cell's `correct` compares
+    metric         benchmark/metrics/<metric>.py, a module with read(ctx)
+    reference      benchmark/reference/<config's "reference">.py
+
+so that a cell, a configuration, a mix or a metric is added by adding
+files and entries, without editing a file already there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import re
+import sys
+from pathlib import Path
+from typing import Dict, List, Optional
+
+BENCH_DIR = Path(__file__).resolve().parent.parent
+ROOT = BENCH_DIR.parent
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
+TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
+            "per_layer"}
+SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+
+
+class SpecError(ValueError):
+    """BENCHMARK.json, or a file it names, breaks the benchmark's rules."""
+
+
+def check_name(value, what: str) -> str:
+    if not isinstance(value, str) or not NAME.fullmatch(value):
+        raise SpecError(f"{what}: {value!r} is not a name of [A-Za-z0-9_.-] "
+                        "(at most 64, not starting with . or -)")
+    return value
+
+
+def check_unit(value, what: str) -> str:
+    if not isinstance(value, str) or not UNIT.fullmatch(value):
+        raise SpecError(f"{what}: unit {value!r} is not 1-16 of [A-Za-z0-9_/%.-]")
+    return value
+
+
+def _line(value, what: str) -> str:
+    if not isinstance(value, str) or not 1 <= len(value) <= 200 or "\n" in value \
+            or "\t" in value:
+        raise SpecError(f"{what}: must be one line of 1-200 characters")
+    return value
+
+
+@dataclasses.dataclass(frozen=True)
+class Metric:
+    name: str
+    unit: str
+    better: str
+    source: str
+    kind: str  # "end_to_end" or "per_layer"
+    workloads: Optional[tuple]
+    bound: Optional[float] = None
+    layer: Optional[str] = None
+    moves: Optional[str] = None
+
+    def applies(self, cell: str) -> bool:
+        return self.workloads is None or cell in self.workloads
+
+    def reader_path(self, bench_dir: Path = BENCH_DIR) -> Path:
+        return bench_dir / "metrics" / f"{self.name}.py"
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    name: str
+    config: str
+    traffic: str
+    chips: int
+
+
+@dataclasses.dataclass
+class Spec:
+    data: dict
+    bench_dir: Path
+    configs: Dict[str, dict]
+    workloads: Dict[str, Workload]
+    metrics: List[Metric]
+
+    @property
+    def run_seconds(self) -> int:
+        return int(self.data["run_seconds"])
+
+    def workload(self, name: str) -> Workload:
+        if name not in self.workloads:
+            raise SpecError(f"no workload {name!r}; have {sorted(self.workloads)}")
+        return self.workloads[name]
+
+    def metrics_for(self, cell: str, kind: str) -> List[Metric]:
+        return [m for m in self.metrics if m.kind == kind and m.applies(cell)]
+
+    def config(self, name: str) -> dict:
+        """The configuration's file, as JSON."""
+        path = self.bench_dir.parent / self.configs[name]["file"]
+        return json.loads(path.read_text())
+
+    def limits(self, workload: str) -> Dict[str, float]:
+        return json.loads(self.limits_path(workload).read_text())
+
+    def limits_path(self, workload: str) -> Path:
+        return self.bench_dir / "limits" / f"{workload}.json"
+
+    def reference_path(self, config: dict) -> Path:
+        return self.bench_dir / "reference" / f"{check_name(config['reference'], 'reference')}.py"
+
+
+def load_module(path: Path, name: str):
+    """A module loaded from a file by its path (metric readers and
+    references have names with dots), once a process."""
+    if name in sys.modules:
+        return sys.modules[name]
+    if not path.is_file():
+        raise SpecError(f"{path} not found")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
+def load(bench_json: Path = ROOT / "BENCHMARK.json",
+         bench_dir: Optional[Path] = None) -> Spec:
+    """Read and check BENCHMARK.json and every file it names."""
+    bench_dir = bench_dir or bench_json.parent / "benchmark"
+    data = json.loads(bench_json.read_text())
+    if set(data) != TOP_KEYS:
+        raise SpecError(f"keys {sorted(data)} are not {sorted(TOP_KEYS)}")
+    configs = {}
+    for c in data["configs"]:
+        if set(c) != {"name", "source", "file", "reduced", "why"}:
+            raise SpecError(f"config {c.get('name')}: keys {sorted(c)}")
+        check_name(c["name"], "config")
+        for key in c["reduced"]:
+            check_name(key, f"config {c['name']}: reduced")
+        _line(c["source"], f"config {c['name']}: source")
+        _line(c["why"], f"config {c['name']}: why")
+        path = bench_json.parent / c["file"]
+        if not path.is_file():
+            raise SpecError(f"config {c['name']}: {c['file']} not found")
+        configs[c["name"]] = c
+    workloads = {}
+    for w in data["workloads"]:
+        if set(w) != {"name", "config", "traffic", "chips", "why"}:
+            raise SpecError(f"workload {w.get('name')}: keys {sorted(w)}")
+        cell = Workload(check_name(w["name"], "workload"), check_name(w["config"], "config"),
+                        check_name(w["traffic"], "traffic"), int(w["chips"]))
+        _line(w["why"], f"workload {cell.name}: why")
+        if cell.config not in configs:
+            raise SpecError(f"workload {cell.name}: no config {cell.config}")
+        if cell.chips not in (1, 4):
+            raise SpecError(f"workload {cell.name}: chips {cell.chips}")
+        workloads[cell.name] = cell
+    metrics = []
+    for kind in ("end_to_end", "per_layer"):
+        for m in data[kind]:
+            keys = {"name", "unit", "better", "source"}
+            keys |= {"bound"} if kind == "end_to_end" else {"layer", "moves"}
+            if not keys <= set(m) <= keys | {"workloads"}:
+                raise SpecError(f"metric {m.get('name')}: keys {sorted(m)}")
+            if m["better"] not in ("lower", "higher") or m["source"] not in SOURCES:
+                raise SpecError(f"metric {m['name']}: better/source")
+            cells = m.get("workloads")
+            for cell in cells or ():
+                if cell not in workloads:
+                    raise SpecError(f"metric {m['name']}: no workload {cell}")
+            metric = Metric(check_name(m["name"], "metric"), check_unit(m["unit"], m["name"]),
+                            m["better"], m["source"], kind,
+                            tuple(cells) if cells is not None else None,
+                            m.get("bound"), m.get("layer"), m.get("moves"))
+            if kind == "per_layer":
+                _line(metric.layer, f"metric {metric.name}: layer")
+            if not metric.reader_path(bench_dir).is_file():
+                raise SpecError(f"metric {metric.name}: no reader "
+                                f"{metric.reader_path(bench_dir).relative_to(bench_dir.parent)}")
+            metrics.append(metric)
+    names = [m.name for m in metrics]
+    if len(set(names)) != len(names):
+        raise SpecError("two metrics share a name")
+    spec = Spec(data, bench_dir, configs, workloads, metrics)
+    from . import traffic
+
+    for cell in workloads.values():
+        if not traffic.path(bench_dir, cell.traffic).is_file():
+            raise SpecError(f"workload {cell.name}: no traffic file "
+                            f"benchmark/traffic/{cell.traffic}.json")
+        traffic.load(bench_dir, cell.traffic)
+        if not spec.limits_path(cell.name).is_file():
+            raise SpecError(f"workload {cell.name}: no limits file "
+                            f"benchmark/limits/{cell.name}.json")
+        if not spec.reference_path(spec.config(cell.config)).is_file():
+            raise SpecError(f"workload {cell.name}: no reference for {cell.config}")
+    return spec

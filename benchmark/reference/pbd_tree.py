@@ -1,0 +1,400 @@
+"""Plain reference of the flexible-mixtures-of-parts detector.
+
+The detector of Yang & Ramanan (CVPR 2011) and Zhu & Ramanan (CVPR
+2012) as plain torch operations on whole tensors, written from the
+published MATLAB code (featpyramid.m, features.cc, resize.cc, reduce.cc,
+fconv.cc, shiftdt.cc, detect_fast.m) and nothing else. It runs on any
+torch device (the card with TF32 off, or the CPU), and imports nothing
+of the program it judges.
+
+    frame (H, W, 3) uint8
+      -> image pyramid: `interval` area resizes of the frame per octave,
+         then repeated half-size binomial reduces, each level rounded to
+         float32 once (the resampling sums in float64)
+      -> 32-channel HOG per level (float64 histograms; the gradient, the
+         strongest colour channel and the orientation choice in float32,
+         the precision the f32 profile states), padded by (pad+1) cells
+         with the occlusion channel set to 1 on the pad frame
+      -> valid correlation with every filter (float64)
+      -> tree DP per level and component: for each part from the leaves
+         up, the generalized distance transform of each of its mixtures
+         by brute force (every source cell against every output cell,
+         first maximum wins), then the max over the child's mixtures
+         with the (parent mixture, child mixture) bias table
+      -> root score = max over root mixtures of root score + root bias.
+
+Every root cell whose score is at least the threshold is a detection.
+`placement_score` evaluates one placement (a root cell, every part's
+cell and mixture) by the same terms, so that a detector's claimed parts
+can be scored without retracing its own argmax choices.
+
+Octave-offset parts (an anchor ds > 0, a part read from a finer octave)
+are not modelled: every part here lies on its parent's level.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# 9 orientation unit vectors of a half circle (features.cc:8-25)
+HOG_UU = (1.0000, 0.9397, 0.7660, 0.5000, 0.1736, -0.1736, -0.5000, -0.7660, -0.9397)
+HOG_VV = (0.0000, 0.3420, 0.6428, 0.8660, 0.9848, 0.9848, 0.8660, 0.6428, 0.3420)
+HOG_EPS = 0.0001
+NORIENT = 18
+F64 = torch.float64
+
+
+def cround(x: float) -> int:
+    """C round(): halves away from zero (MATLAB's round as well)."""
+    return int(math.floor(x + 0.5)) if x >= 0 else -int(math.floor(-x + 0.5))
+
+
+# ---------------------------------------------------------------------------
+# resampling (resize.cc, reduce.cc)
+# ---------------------------------------------------------------------------
+
+
+def resize_weights(src_len: int, dst_len: int) -> np.ndarray:
+    """Area-averaging weights, (dst_len, src_len) float64: output d
+    integrates the source interval [d*inv, (d+1)*inv), inv = src/dst,
+    scaled by dst/src; fractions under 1e-3 dropped (resize.cc:38-65)."""
+    w = np.zeros((dst_len, src_len), dtype=np.float64)
+    scale = dst_len / src_len
+    inv = src_len / dst_len
+    for d in range(dst_len):
+        f1 = d * inv
+        f2 = f1 + inv
+        s1 = int(np.ceil(f1))
+        s2 = int(np.floor(f2))
+        if s1 - f1 > 1e-3:
+            w[d, s1 - 1] += (s1 - f1) * scale
+        for s in range(s1, s2):
+            w[d, s] += scale
+        if f2 - s2 > 1e-3 and s2 < src_len:
+            w[d, s2] += (f2 - s2) * scale
+    return w
+
+
+def reduce_weights(src_len: int) -> np.ndarray:
+    """Half-size 5-tap binomial weights, (round(src/2), src_len) float64,
+    with reduce.cc's boundary stencils (reduce.cc:22-42)."""
+    dst_len = cround(src_len * 0.5)
+    w = np.zeros((dst_len, src_len), dtype=np.float64)
+    w[0, 0:3] = [0.6875, 0.25, 0.0625]
+    for d in range(1, dst_len - 2):
+        w[d, 2 * d - 2 : 2 * d + 3] = [0.0625, 0.25, 0.375, 0.25, 0.0625]
+    if dst_len >= 3:
+        d = dst_len - 2
+        if dst_len * 2 <= src_len:
+            w[d, 2 * d - 2 : 2 * d + 3] = [0.0625, 0.25, 0.375, 0.25, 0.0625]
+        else:
+            w[d, 2 * d - 2 : 2 * d + 2] = [0.0625, 0.25, 0.375, 0.3125]
+    if dst_len >= 2:
+        d = dst_len - 1
+        w[d, 2 * d - 2 : 2 * d + 1] = [0.0625, 0.25, 0.6875]
+    return w
+
+
+def _separable(im: torch.Tensor, wh: np.ndarray, ww: np.ndarray) -> torch.Tensor:
+    """(h, w, 3) float32 -> (dh, dw, 3) float32: both passes in float64,
+    rounded once."""
+    a = torch.as_tensor(wh, dtype=F64, device=im.device)
+    b = torch.as_tensor(ww, dtype=F64, device=im.device)
+    return torch.einsum("ij,jkc,lk->ilc", a, im.to(F64), b).to(torch.float32)
+
+
+def resize(im: torch.Tensor, scale: float) -> torch.Tensor:
+    h, w = im.shape[:2]
+    return _separable(im, resize_weights(h, cround(h * scale)),
+                      resize_weights(w, cround(w * scale)))
+
+
+def reduce(im: torch.Tensor) -> torch.Tensor:
+    h, w = im.shape[:2]
+    return _separable(im, reduce_weights(h), reduce_weights(w))
+
+
+# ---------------------------------------------------------------------------
+# HOG (features.cc)
+# ---------------------------------------------------------------------------
+
+
+def _cell_weights(n_pix: int, n_cells: int, sbin: int, device) -> torch.Tensor:
+    """(n_cells, n_pix) trilinear weights of pixels 1 .. n_pix on the
+    visible grid: pixel q sits at (q + 0.5)/sbin - 0.5 cells and splits
+    between the two cells around it (features.cc:111-119)."""
+    w = torch.zeros((n_cells, n_pix), dtype=F64)
+    q = torch.arange(1, n_pix + 1, dtype=F64)
+    pos = (q + 0.5) / sbin - 0.5
+    lo = torch.floor(pos)
+    frac = pos - lo
+    lo = lo.to(torch.int64)
+    cols = torch.arange(n_pix)
+    ok = lo >= 0
+    w[lo[ok], cols[ok]] += 1.0 - frac[ok]
+    ok = lo + 1 < n_cells
+    w[lo[ok] + 1, cols[ok]] += frac[ok]
+    return w.to(device)
+
+
+def hog(im: torch.Tensor, sbin: int) -> torch.Tensor:
+    """(h, w, 3) float32 image -> (bh-2, bw-2, 32) float64 features: 18
+    contrast-sensitive, 9 insensitive, 4 texture channels and a zero
+    occlusion channel."""
+    h, w = im.shape[:2]
+    bh, bw = cround(h / sbin), cround(w / sbin)
+    oh, ow = max(bh - 2, 0), max(bw - 2, 0)
+    vh, vw = bh * sbin, bw * sbin
+    dev = im.device
+    # pixels 1 .. v-2 of the visible grid, reads clamped to the image
+    ys = torch.arange(1, vh - 1, device=dev).clamp(max=h - 2)
+    xs = torch.arange(1, vw - 1, device=dev).clamp(max=w - 2)
+    dy = im[ys + 1][:, xs] - im[ys - 1][:, xs]
+    dx = im[ys][:, xs + 1] - im[ys][:, xs - 1]
+    v = dx * dx + dy * dy
+    # the strongest channel, the first at a tie
+    ci = torch.argmax(v, dim=-1, keepdim=True)
+    gdx = torch.gather(dx, -1, ci)[..., 0]
+    gdy = torch.gather(dy, -1, ci)[..., 0]
+    gv = torch.gather(v, -1, ci)[..., 0]
+    uu = torch.tensor(HOG_UU, dtype=torch.float32, device=dev)
+    vv = torch.tensor(HOG_VV, dtype=torch.float32, device=dev)
+    dots = gdx[..., None] * uu + gdy[..., None] * vv
+    # features.cc keeps the first of dot_0, -dot_0, dot_1, ... that is
+    # strictly larger than every one before it
+    inter = torch.stack([dots, -dots], dim=-1).reshape(*dots.shape[:-1], NORIENT)
+    idx = torch.argmax(inter, dim=-1)
+    best_o = (idx // 2) + (NORIENT // 2) * (idx % 2)
+    mag = torch.sqrt(gv.to(F64))
+    onehot = F.one_hot(best_o, NORIENT).to(F64) * mag[..., None]
+    wy = _cell_weights(vh - 2, bh, sbin, dev)
+    wx = _cell_weights(vw - 2, bw, sbin, dev)
+    hist = torch.einsum("ay,yxo,bx->abo", wy, onehot, wx)
+
+    half = NORIENT // 2
+    norm = ((hist[..., :half] + hist[..., half:]) ** 2).sum(-1)
+    s2 = norm[:-1, :-1] + norm[:-1, 1:] + norm[1:, :-1] + norm[1:, 1:]
+    inv = 1.0 / torch.sqrt(s2 + HOG_EPS)
+    ns = torch.stack([inv[1 : 1 + oh, 1 : 1 + ow], inv[0:oh, 1 : 1 + ow],
+                      inv[1 : 1 + oh, 0:ow], inv[0:oh, 0:ow]], dim=-1)
+    src = hist[1 : 1 + oh, 1 : 1 + ow]
+    hc = torch.clamp(src[..., None] * ns[..., None, :], max=0.2)  # (oh, ow, 18, 4)
+    sens = 0.5 * hc.sum(-1)
+    texture = 0.2357 * hc.sum(-2)
+    both = src[..., :half] + src[..., half:]
+    insens = 0.5 * torch.clamp(both[..., None] * ns[..., None, :], max=0.2).sum(-1)
+    occl = torch.zeros((oh, ow, 1), dtype=F64, device=dev)
+    return torch.cat([sens, insens, texture, occl], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# pyramid (featpyramid.m)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Model:
+    """A tree model as plain tensors. Parts root first, parent[p] < p;
+    every part has K mixtures; defs[p, k] = (ax, bx, ay, by) positive
+    quadratic costs, anchors[p, k] = (dx, dy) cell offsets from the
+    parent, bias[p, l, k] the bias of mixture k under parent mixture l
+    (the root's in bias[0, 0])."""
+
+    parent: List[int]
+    filters: torch.Tensor  # (P, K, fh, fw, 32)
+    defs: torch.Tensor  # (P, K, 4)
+    anchors: torch.Tensor  # (P, K, 2) int64
+    bias: torch.Tensor  # (P, K, K); the root's (1, K) table in bias[0, :1]
+    interval: int
+    sbin: int
+    thresh: float
+
+    @property
+    def pad(self):
+        """(pady, padx) = filter size - 2 (featpyramid.m:11-12)."""
+        fh, fw = self.filters.shape[2:4]
+        return max(fh - 2, 0), max(fw - 2, 0)
+
+
+def pyramid(frame: torch.Tensor, model: Model):
+    """Padded features and box scales of every level of a (H, W, 3)
+    uint8 frame."""
+    im = frame.to(torch.float32)
+    h, w = im.shape[:2]
+    sc = 2.0 ** (1.0 / model.interval)
+    n = 1 + int(math.floor(math.log(min(h, w) / (5.0 * model.sbin)) / math.log(sc)))
+    feats: List[torch.Tensor] = [None] * n
+    scales = [0.0] * n
+    for i in range(min(model.interval, n)):
+        scaled = resize(im, 1.0 / sc**i) if i > 0 else im
+        feats[i] = hog(scaled, model.sbin)
+        scales[i] = model.sbin * sc**i
+        j = i + model.interval
+        while j < n:
+            scaled = reduce(scaled)
+            feats[j] = hog(scaled, model.sbin)
+            scales[j] = 2.0 * scales[j - model.interval]
+            j += model.interval
+    pady, padx = model.pad
+    py, px = pady + 1, padx + 1
+    out = []
+    for f in feats:
+        f = F.pad(f, (0, 0, px, px, py, py))
+        f[:py, :, -1] = 1.0
+        f[-py:, :, -1] = 1.0
+        f[:, :px, -1] = 1.0
+        f[:, -px:, -1] = 1.0
+        out.append(f)
+    return out, scales
+
+
+# ---------------------------------------------------------------------------
+# correlation, distance transform, tree DP
+# ---------------------------------------------------------------------------
+
+
+def responses(feat: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """Valid correlation of (Hp, Wp, 32) features with (N, fh, fw, 32)
+    filters -> (N, Hp-fh+1, Wp-fw+1), float64 (fconv.cc)."""
+    x = feat.permute(2, 0, 1)[None].to(F64)
+    k = filters.permute(0, 3, 1, 2).to(F64)
+    return F.conv2d(x, k)[0]
+
+
+def distance_transform(src: torch.Tensor, defs: torch.Tensor, shift: torch.Tensor,
+                       out_h: int, out_w: int):
+    """out[k, y, x] = max over (v, u) of src[k, v, u] - ay*dy^2 - by*dy
+    - ax*dx^2 - bx*dx, dy = shift_y + y - v, dx = shift_x + x - u, for
+    y < out_h, x < out_w (the parent's grid), by brute force: the y pass,
+    then the x pass on its output (shiftdt.cc). src (K, H, W) float64,
+    defs (K, 4), shift (K, 2) as (x, y)."""
+    _, h, w = src.shape
+    dev = src.device
+    ax, bx, ay, by = (defs[:, i].to(F64)[:, None, None] for i in range(4))
+    # y pass: (K, y_out, v)
+    d = (shift[:, 1, None, None] + torch.arange(out_h, device=dev)[None, :, None]
+         - torch.arange(h, device=dev)[None, None, :]).to(F64)
+    cost = ay * d * d + by * d
+    tmp = (src[:, None, :, :] - cost[..., None]).amax(dim=2)  # (K, y, W)
+    # x pass: (K, x_out, u)
+    d = (shift[:, 0, None, None] + torch.arange(out_w, device=dev)[None, :, None]
+         - torch.arange(w, device=dev)[None, None, :]).to(F64)
+    cost = ax * d * d + bx * d
+    return (tmp[:, :, None, :] - cost[:, None, :, :]).amax(dim=3)
+
+
+def root_scores(resp: torch.Tensor, model: Model) -> torch.Tensor:
+    """The tree DP over one level's (P*K, Hr, Wr) responses: the best
+    score of a placement at every root cell, (Hr, Wr)."""
+    nparts = len(model.parent)
+    k = model.filters.shape[1]
+    score = [resp[p * k : (p + 1) * k].clone() for p in range(nparts)]
+    for p in range(nparts - 1, 0, -1):
+        par = model.parent[p]
+        msg0 = distance_transform(score[p], model.defs[p], model.anchors[p],
+                                  *score[par].shape[1:])
+        # (L, K, H, W): parent mixture l takes its best child mixture
+        msg = (msg0[None] + model.bias[p].to(F64)[:, :, None, None]).amax(dim=1)
+        score[par] = score[par] + msg
+    rootsc = score[0] + model.bias[0].to(F64)[0][:, None, None]
+    return rootsc.amax(dim=0)
+
+
+@dataclasses.dataclass
+class Detection:
+    """One frame's reference. Per level: the box scale, and, flattened
+    into one tensor each, the responses (P*K, Hr, Wr) and the root
+    scores (Hr, Wr), with each level's offsets and (Hr, Wr); and the
+    scores of every root cell at or above the threshold, best first."""
+
+    scales: List[float]
+    resp: torch.Tensor
+    resp_off: torch.Tensor
+    root: torch.Tensor
+    root_off: torch.Tensor
+    grid: torch.Tensor  # (levels, 2) as (Hr, Wr)
+    scores: torch.Tensor
+
+
+def _flat(maps: List[torch.Tensor]):
+    sizes = torch.tensor([m.numel() for m in maps])
+    off = torch.cumsum(sizes, 0) - sizes
+    return torch.cat([m.reshape(-1) for m in maps]), off.to(maps[0].device)
+
+
+def detect(frame: torch.Tensor, model: Model) -> Detection:
+    flat = model.filters.reshape(-1, *model.filters.shape[2:])
+    feats, scales = pyramid(frame, model)
+    resp, root = [], []
+    for f in feats:
+        r = responses(f, flat)
+        resp.append(r)
+        root.append(root_scores(r, model))
+    grid = torch.tensor([r.shape for r in root], device=frame.device)
+    resp, resp_off = _flat(resp)
+    root, root_off = _flat(root)
+    kept = root[root >= model.thresh]
+    return Detection(scales, resp, resp_off, root, root_off, grid,
+                     torch.sort(kept, descending=True).values)
+
+
+def _gather(flat, off, grid, level, planes, ys, xs):
+    """flat[level's map][plane, y, x], -inf off the level's grid."""
+    h, w = grid[level, 0, None], grid[level, 1, None]
+    inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    idx = off[level, None] + (planes * h + ys.clamp(min=0).minimum(h - 1)) * w \
+        + xs.clamp(min=0).minimum(w - 1)
+    val = flat[idx]
+    return torch.where(inside, val, torch.full_like(val, -math.inf))
+
+
+def placement_score(det: Detection, model: Model, level: torch.Tensor, xs: torch.Tensor,
+                    ys: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """The score of N placements by the DP's terms: every part's
+    response at its cell and mixture, less its deformation from its
+    parent's cell, plus the bias of its (parent mixture, mixture) and the
+    root's bias. level (N,), xs, ys, mix (N, P) int64 on each
+    placement's level grid. Cells outside the grid score -inf."""
+    k = model.filters.shape[1]
+    nparts = xs.shape[1]
+    dev = xs.device
+    planes = torch.arange(nparts, device=dev) * k + mix
+    total = _gather(det.resp, det.resp_off, det.grid, level, planes, ys, xs).sum(1)
+    bias = model.bias.to(F64)
+    total = total + bias[0, 0][mix[:, 0]]
+    par = torch.tensor(model.parent[1:], device=dev)
+    ch = torch.arange(1, nparts, device=dev)[None, :]
+    m = mix[:, 1:]
+    a = model.anchors[ch, m]
+    dx = (a[..., 0] + xs[:, par] - xs[:, 1:]).to(F64)
+    dy = (a[..., 1] + ys[:, par] - ys[:, 1:]).to(F64)
+    ax, bx, ay, by = model.defs[ch, m].to(F64).unbind(-1)
+    total = total - (ax * dx * dx + bx * dx + ay * dy * dy + by * dy).sum(1)
+    return total + bias[ch, mix[:, par], m].sum(1)
+
+
+def root_score_at(det: Detection, level: torch.Tensor, x: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """The reference's best score at root cells (x, y) of their levels;
+    -inf outside the grid."""
+    zero = torch.zeros_like(x)
+    return _gather(det.root, det.root_off, det.grid, level, zero[:, None], y[:, None],
+                   x[:, None])[:, 0]
+
+
+def model_from_arrays(arrays: Dict[str, torch.Tensor], interval: int, sbin: int,
+                      thresh: float) -> Model:
+    """The Model of the benchmark's generated arrays (lib/inputs.py)."""
+    parent = [int(p) for p in arrays["parent"].tolist()]
+    for p, q in enumerate(parent[1:], start=1):
+        if not 0 <= q < p:
+            raise ValueError(f"part {p}: parent {q} must come before it")
+    return Model(parent=parent, filters=arrays["filters"], defs=arrays["defs"],
+                 anchors=arrays["anchors"].to(torch.int64), bias=arrays["bias"],
+                 interval=int(interval), sbin=int(sbin), thresh=float(thresh))

@@ -1,0 +1,178 @@
+"""The harness is driven by data: a configuration, a traffic mix and a
+metric added as new files (and entries in BENCHMARK.json) in a copy of
+the benchmark are found and checked by name, with no file edited; names
+and units outside the rules are refused."""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+import pytest
+import torch
+
+from benchmark.lib import cell, spec, traffic
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# a client that the benchmark does not have: open-loop arrivals at a
+# fixed rate (a new parameter), each frame's latency from its arrival
+PACED = """
+import time
+from benchmark.lib import detection, loop
+
+KEYS = detection.KEYS | {"rate_hz"}
+
+
+class Client(detection.Client):
+    per_request = 1
+
+    def call(self):
+        i = self.next % len(self.frames)
+        self.next += 1
+        return [(i, self.det.detect(self.frames[i]))]
+
+    def warm_call(self):
+        self.det.detect(self.frames[0])
+
+    def traced_request(self):
+        return (lambda: self.det.detect(self.frames[0])), 1
+
+    def window(self, seconds, clock=time.perf_counter):
+        lat, start = [], clock()
+        while len(lat) < 2 or clock() - start < seconds:
+            due = start + len(lat) / self.p["rate_hz"]
+            time.sleep(max(0.0, due - clock()))
+            self.request()
+            lat.append(clock() - due)
+        return loop.Timed(lat, len(lat), clock() - start, 0, 1)
+"""
+
+
+@pytest.fixture
+def copy(tmp_path):
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    return tmp_path
+
+
+def _add(root: Path, bench: dict) -> dict:
+    b = root / "benchmark"
+    cfg = json.loads((b / "configs/person26.json").read_text())
+    cfg.update(name="tiny9", parts=9, mixtures=2, parents=[0, 0, 1, 1, 2, 0, 5, 5, 3])
+    (b / "configs/tiny9.json").write_text(json.dumps(cfg))
+    (b / "clients/paced.py").write_text(PACED)
+    (b / "traffic/paced.json").write_text(json.dumps(
+        {"client": "paced", "pool": 2, "compare_frames": 2, "warm_requests": 1,
+         "rate_hz": 50.0}))
+    (b / "limits/tiny9.paced.json").write_text(json.dumps(
+        {"score_gap": 0.01, "place_gap": 0.01, "box_gap_px": 0.01, "list_gap": 0.01}))
+    (b / "metrics/requests_seen.tiny.py").write_text(
+        "def read(ctx):\n    return len(ctx.latencies_s)\n")
+    bench["configs"].append({"name": "tiny9", "source": "a test", "reduced": ["parts"],
+                             "file": "benchmark/configs/tiny9.json", "why": "a test"})
+    bench["workloads"].append({"name": "tiny9.paced", "config": "tiny9", "traffic": "paced",
+                               "chips": 1, "why": "a test"})
+    bench["end_to_end"][0]["workloads"].append("tiny9.paced")
+    bench["per_layer"].append({"name": "requests_seen.tiny", "unit": "requests",
+                               "better": "higher", "source": "host_clock", "layer": "test",
+                               "moves": "frame_ms_p50", "workloads": ["tiny9.paced"]})
+    return bench
+
+
+def _write(root: Path, bench: dict) -> spec.Spec:
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return spec.load(root / "BENCHMARK.json", root / "benchmark")
+
+
+def test_new_files_are_found_by_name_without_edits(copy):
+    before = {p: p.read_bytes() for p in (copy / "benchmark").rglob("*") if p.is_file()}
+    s = _write(copy, _add(copy, json.loads((copy / "BENCHMARK.json").read_text())))
+    assert all(p.read_bytes() == b for p, b in before.items())
+    cell_ = s.workload("tiny9.paced")
+    assert s.config(cell_.config)["parts"] == 9
+    params, client = traffic.load(s.bench_dir, cell_.traffic)
+    assert params["rate_hz"] == 50.0 and "rate_hz" in client.KEYS
+    assert s.limits("tiny9.paced")["list_gap"] == 0.01
+    assert [m.name for m in s.metrics_for("tiny9.paced", "per_layer")] == ["requests_seen.tiny"]
+    assert s.metrics_for("person26.frame", "per_layer") == \
+        spec.load().metrics_for("person26.frame", "per_layer")
+    reader = spec.load_module(s.metrics[-1].reader_path(s.bench_dir), "metric_tiny_test")
+    ctx = cell.Context("tiny9.paced", {}, {}, 0.0, [0.1, 0.2], 2, 0.3, None)
+    assert reader.read(ctx) == 2
+
+
+def test_a_new_client_runs_a_whole_cell(copy):
+    """The new mix, its client, configuration and limits run through the
+    harness as it stands (CPU, small frames) and the program's answers
+    come out correct."""
+    torch.set_num_threads(4)
+    s = _write(copy, _add(copy, json.loads((copy / "BENCHMARK.json").read_text())))
+    out = cell.run(s, "tiny9.paced", 2**31 + 77, 0.5, False, "cpu", 0.0,
+                   config_overrides={"frame_h": 60, "frame_w": 80})
+    assert out["correct"], out["compared"]
+    assert out["seconds"]["answers_compared"] >= 1 and out["seconds"]["requests"] >= 2
+    assert out["metrics"]["frame_ms_p50"]["value"] > 0
+
+
+@pytest.mark.parametrize("change", ["unknown_key", "missing_key", "no_client", "no_limits"])
+def test_a_traffic_file_its_client_does_not_take_is_refused(copy, change):
+    bench = _add(copy, json.loads((copy / "BENCHMARK.json").read_text()))
+    b = copy / "benchmark"
+    params = json.loads((b / "traffic/paced.json").read_text())
+    if change == "unknown_key":
+        params["burst"] = 4
+    elif change == "missing_key":
+        del params["rate_hz"]
+    elif change == "no_client":
+        params["client"] = "replay"
+    else:
+        (b / "limits/tiny9.paced.json").unlink()
+    (b / "traffic/paced.json").write_text(json.dumps(params))
+    with pytest.raises(spec.SpecError):
+        _write(copy, bench)
+
+
+@pytest.mark.parametrize("bad", ["has space", "comma,name", "slash/name", "-lead",
+                                 ".lead", "x" * 65, "microµs"])
+def test_names_outside_the_rules_are_refused(copy, bad):
+    bench = _add(copy, json.loads((copy / "BENCHMARK.json").read_text()))
+    bench["per_layer"][-1]["name"] = bad
+    with pytest.raises(spec.SpecError):
+        _write(copy, bench)
+
+
+@pytest.mark.parametrize("unit", ["tokens per second", "x" * 17, "", "µs", "ms,s"])
+def test_units_outside_the_rules_are_refused(copy, unit):
+    bench = _add(copy, json.loads((copy / "BENCHMARK.json").read_text()))
+    bench["per_layer"][-1]["unit"] = unit
+    with pytest.raises(spec.SpecError):
+        _write(copy, bench)
+
+
+def test_a_metric_without_its_reader_is_refused(copy):
+    bench = _add(copy, json.loads((copy / "BENCHMARK.json").read_text()))
+    (copy / "benchmark/metrics/requests_seen.tiny.py").unlink()
+    with pytest.raises(spec.SpecError, match="no reader"):
+        _write(copy, bench)
+
+
+def test_the_committed_benchmark_keeps_the_contracts_limits():
+    s = spec.load()
+    assert 1 <= s.run_seconds <= 51
+    assert 2 + 14 * 24 * (s.run_seconds + 60) + 24 * 180 + 1200 <= 43200
+    assert all(w.chips == 1 for w in s.workloads.values())
+    e2e = {m.name: m for m in s.metrics if m.kind == "end_to_end"}
+    assert e2e["setup_s"].bound <= 0.25 and e2e["setup_s"].workloads is None
+    assert all(0.01 <= m.bound <= 0.25 for m in e2e.values())
+    for name in s.workloads:
+        got = {m.name for m in s.metrics_for(name, "end_to_end")}
+        assert "setup_s" in got and len(got) >= 2
+        assert s.metrics_for(name, "per_layer")
+    for m in s.metrics:
+        if m.kind == "per_layer":
+            assert m.moves in e2e and all(m2.applies(c) for c in (m.workloads or ())
+                                          for m2 in [e2e[m.moves]])
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024

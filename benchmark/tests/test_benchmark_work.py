@@ -1,0 +1,61 @@
+"""The work arithmetic of the roofline shares and step_mfu: the
+correlation counted at every level's own size, and, as the
+implementation's figure, over the bucket stacks, which reproduces the
+counts PERF.md carried before the benchmark (chip_smoke.py's, from the
+detect's captured bucket stacks) at the shapes they were taken at."""
+
+from __future__ import annotations
+
+import pytest
+
+from benchmark.lib import spec, work
+
+
+def _person26(**change):
+    return {**spec.load().config("person26"), **change}
+
+
+# the shapes of PRs 7-15's counts: 26 parts x 4 mixtures, and a 68-part,
+# 3-mixture model at interval 5 with one bucket per octave
+PR7_PERSON = dict(mixtures=4)
+PR14_FACE68 = dict(parts=68, mixtures=3, interval=5, buckets_per_octave=1)
+
+
+def test_the_padded_stacks_reproduce_the_kernel_tables_counts():
+    flops, nbytes = work.conv_work_padded(_person26(**PR7_PERSON))
+    assert round(flops / 1e9, 2) == 36.82
+    assert round(nbytes / 1e6, 1) == 123.4
+    assert work.conv_bound_s(_person26(**PR7_PERSON), work=work.conv_work_padded) * 1e3 == \
+        pytest.approx(0.2231, abs=1e-4)
+    flops, _ = work.conv_work_padded(_person26(**PR14_FACE68))
+    assert round(flops / 1e9, 2) == 47.21
+
+
+def test_the_roofline_counts_each_level_at_its_own_size():
+    cfg = _person26()
+    assert len(work.levels(cfg)) == 46
+    flops, nbytes = work.conv_work(cfg)
+    cells = sum(work.response_cells(cfg))
+    assert flops == 2.0 * cells * 800 * 26 * cfg["mixtures"]
+    assert flops < work.conv_work_padded(cfg)[0]
+    assert nbytes < work.conv_work_padded(cfg)[1]
+    assert work.conv_bound_s(cfg) == pytest.approx(3.0 * flops / work.TF32_FLOPS)
+    # the padding is the implementation's: the work does not move with it
+    assert work.conv_work(_person26(buckets_per_octave=1)) == (flops, nbytes)
+
+
+def test_dt_bytes_match_the_kernel_table_shape():
+    """The K1 row's bound, 0.0140 ms for y + x over (80, 126, 166)."""
+    cells = 126 * 166
+    assert 28.0 * 80 * cells / work.HBM_BYTES_PER_S * 1e3 == pytest.approx(0.0140, abs=1e-4)
+    cfg = _person26()
+    assert work.dt_bytes(cfg, 8) == \
+        8 * 28.0 * 25 * cfg["mixtures"] * sum(work.response_cells(cfg))
+
+
+def test_model_flops_count_the_exact_pyramid():
+    cfg = _person26(**PR7_PERSON)
+    conv_exact = 2.0 * sum(work.response_cells(cfg)) * 800 * 104
+    assert conv_exact / 1e9 == pytest.approx(26.10, abs=0.01)
+    assert work.model_flops(cfg) > conv_exact
+    assert work.F32_PROFILE_FLOPS == 165e12
