@@ -1,0 +1,9 @@
+"""Device ops of one profiled detect issued inside the backtrack and select
+spans (backtracks, top-k, re-score, NMS, final gathers): each device
+event by the CUDA runtime call that issued it (lib/spans.py)."""
+
+from benchmark.lib import spans
+
+
+def read(ctx):
+    return spans.reading(ctx, "layer_ops", "backtrack")

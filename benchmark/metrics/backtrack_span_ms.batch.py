@@ -1,0 +1,9 @@
+"""Median over the spanned requests of the ms in the backtrack and select
+spans (backtracks, top-k, re-score, NMS, final gathers) in a microbatch
+group, per image (lib/spans.py)."""
+
+from benchmark.lib import spans
+
+
+def read(ctx):
+    return spans.reading(ctx, "span_ms", "backtrack")

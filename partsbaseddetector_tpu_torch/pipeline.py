@@ -50,6 +50,7 @@ from .ops.pyramid import (
     mask_responses,
     response_valid_extents,
 )
+from .utils.profiling import span
 
 
 class BucketScores(NamedTuple):
@@ -211,7 +212,7 @@ def root_scores(
     if single:
         im = im[None]
     nimg = im.shape[0]
-    with torch.no_grad():
+    with torch.no_grad(), span("pyramid"):
         feats = build_pyramid_features(im.to(conv_dtype), plan, spec)
     if engine == "fourier" and params is None and fft_spectra is None:
         fft_spectra = [
@@ -226,43 +227,49 @@ def root_scores(
     filters = dmodel.filters if params is None else params["filters"]
     k2 = params is None and engine == "spatial" and conv_dtype == torch.float32
     if k2:
-        spatial = filter_responses_grouped(flat, dmodel.filters, dmodel.filters_split)
+        with span("conv"):
+            spatial = filter_responses_grouped(
+                flat, dmodel.filters, dmodel.filters_split
+            )
     resps: List[torch.Tensor] = []
     vhs: List[np.ndarray] = []
     vws: List[np.ndarray] = []
     for b, bucket in enumerate(plan.buckets):
-        # the Fourier engine keeps the image axis and broadcasts its
-        # spectra over it
-        if engine == "fourier":
-            resp = filter_responses_fft(
-                feats[b].to(torch.float32), filters,
-                None if params is not None else fft_spectra[b],
-            )
-        elif k2:
+        if k2:
             resp = spatial[b]
-        elif conv_dtype == torch.bfloat16:
-            resp = filter_responses_conv2d(flat[b], filters)
         else:
-            resp = (conv or filter_responses)(flat[b], filters)
-        resp = resp.reshape(nimg, -1, *resp.shape[-3:])
-        if collect_responses is not None:
-            # real placements never index masked cells, and the re-score
-            # gathers scalars from these
-            collect_responses.append(resp)
-        resp = resp.to(dtype)
-        vh, vw = response_valid_extents(
-            plan, bucket, packed.filter_sizes, spec.border
-        )
-        resp = mask_responses(resp, vh, vw, neg)
-        if response_masks is not None:
-            # (S, Hr, Wr) positional gates broadcast over the filters;
-            # (S, Hr, Wr, F) per-filter gates apply as they are
-            m = response_masks[b]
-            if m.dim() == 3:
-                m = m[..., None]
-            resp = torch.where(
-                m, resp, torch.full((), neg, dtype=dtype, device=resp.device)
+            with span("conv"):
+                # the Fourier engine keeps the image axis and broadcasts
+                # its spectra over it
+                if engine == "fourier":
+                    resp = filter_responses_fft(
+                        feats[b].to(torch.float32), filters,
+                        None if params is not None else fft_spectra[b],
+                    )
+                elif conv_dtype == torch.bfloat16:
+                    resp = filter_responses_conv2d(flat[b], filters)
+                else:
+                    resp = (conv or filter_responses)(flat[b], filters)
+        with span("mask"):
+            resp = resp.reshape(nimg, -1, *resp.shape[-3:])
+            if collect_responses is not None:
+                # real placements never index masked cells, and the
+                # re-score gathers scalars from these
+                collect_responses.append(resp)
+            resp = resp.to(dtype)
+            vh, vw = response_valid_extents(
+                plan, bucket, packed.filter_sizes, spec.border
             )
+            resp = mask_responses(resp, vh, vw, neg)
+            if response_masks is not None:
+                # (S, Hr, Wr) positional gates broadcast over the filters;
+                # (S, Hr, Wr, F) per-filter gates apply as they are
+                m = response_masks[b]
+                if m.dim() == 3:
+                    m = m[..., None]
+                resp = torch.where(
+                    m, resp, torch.full((), neg, dtype=dtype, device=resp.device)
+                )
         resps.append(resp)
         vhs.append(vh)
         vws.append(vw)
@@ -292,15 +299,16 @@ def root_scores(
                 )
 
             tensors = comp.tensors(params) if params is not None else None
-            if params is not None and not with_tables and remat:
-                rootv, rooti, _ = torch.utils.checkpoint.checkpoint(
-                    run, resps, tensors, use_reentrant=False
-                )
-                tables = {}
-            else:
-                rootv, rooti, tables = run(resps, tensors)
-                if not with_tables:
+            with span("dp"):
+                if params is not None and not with_tables and remat:
+                    rootv, rooti, _ = torch.utils.checkpoint.checkpoint(
+                        run, resps, tensors, use_reentrant=False
+                    )
                     tables = {}
+                else:
+                    rootv, rooti, tables = run(resps, tensors)
+                    if not with_tables:
+                        tables = {}
             if single:
                 rootv, rooti = rootv[0], rooti[0]
                 tables = {p: t[0] for p, t in tables.items()}

@@ -1,7 +1,8 @@
 """Utilities: C-semantics rounding, observability, input validation, the
 device. The JAX package's `utils` re-exports; its `time_jitted` is
-`time_fn` here (the port runs eagerly and has no jit)."""
+`time_fn` here (the port runs eagerly and has no jit), and the stage
+spans (`span`, `recording`) are the port's own."""
 
 from .device import resolve_device
-from .profiling import Timer, checked, time_fn, trace, validate_image
+from .profiling import Timer, checked, recording, span, time_fn, trace, validate_image
 from .rounding import cround

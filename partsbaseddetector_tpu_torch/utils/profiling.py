@@ -8,15 +8,17 @@ prints, SURVEY.md §5):
   - Timer: wall-clock harness with named stages; a stage given a result
     synchronizes the CUDA devices its tensors live on (the JAX
     package's block_until_ready);
+  - span(), recording(): the program's stage spans (the detect path's
+    stages, named in the docstring of span), off unless a recording()
+    is open, on the clock of torch.profiler's events;
   - time_fn(): median steady-state latency of a call (the counterpart of
     time_jitted: the port has no jit);
   - trace(): context manager around torch.profiler that writes a Chrome
     trace (chrome://tracing, Perfetto);
   - checked(): wraps a function so that the first op that makes a NaN
     raises (the counterpart of the JAX package's checkify guards);
-  - device_op_breakdown(): device ms per call by op family, and the
-    finer per-kernel families of the port's kernels (device_profile,
-    kernel_family), which chip_smoke.py reports;
+  - device_profile(), kernel_family(): device ms of a profiled window
+    by family of the port's kernels, which chip_smoke.py reports;
   - window(), launch_counts(), require_launches(), profiled(): the
     profiler window every reading here takes, the hand kernels'
     launches by family as their wrappers count them, and the check
@@ -29,9 +31,12 @@ prints, SURVEY.md §5):
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from collections import deque
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -83,6 +88,151 @@ class Timer:
         return "\n".join(
             f"{k}: {v * 1000:.2f} ms" for k, v in self.summary().items()
         )
+
+
+# -- stage spans -------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One finished span. Times are time.time_ns(), the unix-ns clock of
+    torch.profiler's events (Kineto's start_ns(), the CUDA runtime's
+    records among them), so a span can be laid over a profile."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]  # None at a root
+    request: int  # the root's id
+    images: Optional[int]  # a root's images; None below a root
+
+
+class Recording:
+    """The spans that finished while it was on, the newest SPAN_CAP of
+    them: `spans` in the order they ended, and `dropped`, the older
+    spans let go to keep within the cap. Each thread keeps its own
+    stack of open spans, so a span opened on a worker thread with none
+    open there is a root of its own."""
+
+    def __init__(self):
+        self.dropped = 0
+        self._done: deque = deque(maxlen=SPAN_CAP)
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    @property
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._done)
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def _finish(self, span: Span) -> None:
+        with self._lock:
+            if len(self._done) == self._done.maxlen:
+                self.dropped += 1
+            self._done.append(span)
+
+
+class _OpenSpan:
+    __slots__ = ("_rec", "_name", "_images", "_id", "_parent", "_request", "_start")
+
+    def __init__(self, rec: Recording, name: str, images: Optional[int]):
+        self._rec, self._name, self._images = rec, name, images
+
+    def __enter__(self):
+        stack = self._rec._stack()
+        self._id = next(self._rec._ids)
+        if stack:
+            top = stack[-1]
+            self._parent, self._request, self._images = top._id, top._request, None
+        else:
+            self._parent, self._request = None, self._id
+        stack.append(self)
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self._rec._stack().pop()
+        self._rec._finish(Span(self._name, self._start, end, self._id, self._parent,
+                               self._request, self._images))
+        return False
+
+
+class _NoSpan:
+    """span()'s object while no recording is open: its enter and exit
+    are static, so a with-block over it allocates nothing."""
+
+    __slots__ = ()
+
+    @staticmethod
+    def __enter__():
+        return None
+
+    @staticmethod
+    def __exit__(*exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+SPAN_CAP = 1 << 16
+_recording: Optional[Recording] = None
+_recording_lock = threading.Lock()
+
+
+def span(name: str, images: Optional[int] = None):
+    """A context manager that records one span of `name` while a
+    recording() is open; otherwise NO_SPAN, after one read of a module
+    global: no allocation, no clock read. `images`: the images a root
+    span's request covers (ignored below a root).
+
+    The detect path's spans (32 in a person26 VGA detect, whose ten
+    buckets give ten mask and ten dp spans):
+
+        roots      detect, detect_many, detect_batch (with images)
+        transfers  upload (staging and the copy up; on the pipelined
+                   path's uploader thread a root of its own), pack (the
+                   device-side packer), readback (the copy down and its
+                   wait), assemble (candidates from the host rows, the
+                   host depth filter included)
+        pipeline   pyramid (the HOG pyramid), conv (the part-filter
+                   responses: K2's grouped launch, or each bucket's
+                   engine call), mask (each bucket's masking and gates),
+                   dp (one tree DP: a bucket and a component)
+        tail       backtrack (the backtracks and their concatenation),
+                   select (top-k, the f32 re-score, device NMS, the
+                   final gathers, the device depth keep mask)
+    """
+    rec = _recording
+    if rec is None:
+        return NO_SPAN
+    return _OpenSpan(rec, name, images)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Turn spans on for the process and yield the Recording that
+    collects them; one recording at a time. An operator reads a stage's
+    time as the sum of its spans' end_ns - start_ns in each request
+    (spans sharing a root's id), over the root's images."""
+    global _recording
+    rec = Recording()
+    with _recording_lock:
+        if _recording is not None:
+            raise RuntimeError("spans are already being recorded")
+        _recording = rec
+    try:
+        yield rec
+    finally:
+        with _recording_lock:
+            _recording = None
 
 
 def time_fn(fn: Callable, *args, iters: int = 5) -> float:
@@ -168,35 +318,11 @@ FAMILIES = (("dt1d_window", "dt1d_window"), ("dt1d_bwd", "dt1d_axis2_bwd"),
 # (launch_counts), and the x passes among the dt1d launches
 HAND_FAMILIES = ("dt1d_window", "dt1d_bwd", "dt1d", "dt1d_aux", "conv", "transpose")
 
-# device_op_breakdown's families (the JAX package's names) from the
-# finer ones above; T2 is a transposed copy, where XLA's transposes are
-# its copy ops
-BREAKDOWN = {"dt1d_window": "dt_kernels", "dt1d_bwd": "dt_kernels",
-             "dt1d": "dt_kernels", "conv": "conv",
-             "transpose": "async_copies_overlapped", "fft": "other"}
-
 
 def kernel_family(name: str) -> str:
     """The FAMILIES key of a device event's name, or "other"."""
     low = name.lower()
     return next((k for k, piece in FAMILIES if piece in low), "other")
-
-
-def op_family(name: str) -> str:
-    """device_op_breakdown's family of a device event's name:
-    dt_kernels (K1, K3's x pass, K4, K5), conv (K2),
-    async_copies_overlapped (copies and memsets, and T2),
-    fused_elementwise_hog_dp (torch's elementwise and reduction
-    kernels: HOG, the pyramid, the DP's glue) or other."""
-    fam = kernel_family(name)
-    if fam != "other":
-        return BREAKDOWN[fam]
-    low = name.lower()
-    if "memcpy" in low or "memset" in low or "copy" in low:
-        return "async_copies_overlapped"
-    if "elementwise" in low or "reduce" in low:
-        return "fused_elementwise_hog_dp"
-    return "other"
 
 
 def _device_events(prof) -> list:
@@ -340,39 +466,6 @@ def profiled(fn, per: float = 1.0) -> dict:
     got = device_profile(prof, per)
     require_launches(got, launches_since(before))
     return got
-
-
-def device_op_breakdown(fn, *args, iters: int = 5) -> Dict[str, float]:
-    """Profile `fn(*args)` and attribute device time by op family.
-
-    Returns {family: device ms per call} over `iters` calls after a
-    warm-up, in op_family's families, largest first: in-program
-    numbers, unlike wall-clock timing. Copies on a stream of their own
-    overlap compute, so the families need not sum to the wall time.
-    Returns {} when the profiler saw no device time (on the CPU, or
-    when profiling is unavailable). The window is held by
-    require_launches to the launches the wrappers counted in it."""
-    import collections
-
-    import torch
-
-    if not torch.cuda.is_available():
-        return {}
-    try:
-        synchronize(fn(*args))
-        before = launch_counts()
-        with window() as prof:
-            for _ in range(iters):
-                fn(*args)
-        events = _device_events(prof)
-    except RuntimeError:
-        return {}
-    require_launches(device_profile(prof), launches_since(before))
-    tot = collections.Counter()
-    for e in events:
-        if _dev_us(e):
-            tot[op_family(e.key)] += _dev_us(e)
-    return {k: v / 1e3 / iters for k, v in tot.most_common()}
 
 
 def validate_image(im: np.ndarray, min_side: Optional[int] = None) -> np.ndarray:

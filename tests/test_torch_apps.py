@@ -383,7 +383,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(64).cumsum(0)
     assert prof is not None
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
-    assert profiling.device_op_breakdown(lambda: torch.ones(4) + 1) == {}
 
 
 def test_checked_raises_on_a_new_nan_only():
@@ -396,19 +395,3 @@ def test_checked_raises_on_a_new_nan_only():
     assert torch.isnan(out[1]) and out[0].item() == 3.0
     with pytest.raises(FloatingPointError, match="sqrt"):
         profiling.checked(torch.sqrt)(torch.tensor([-1.0]))
-
-
-@pytest.mark.parametrize("name,family", [
-    ("void pbd::dt1d_axis2_kernel<dt1d_exact>(float const*)", "dt_kernels"),
-    ("pbd_dt1d_window_axis2_kernel", "dt_kernels"),
-    ("pbd::dt1d_axis2_bwd_kernel", "dt_kernels"),
-    ("void conv3xtf32_grouped_kernel<5, 5>", "conv"),
-    ("Memcpy HtoD (Pageable -> Device)", "async_copies_overlapped"),
-    ("void pbd::transpose32_pair_kernel", "async_copies_overlapped"),
-    ("void at::native::vectorized_elementwise_kernel<4, AddFunctor>",
-     "fused_elementwise_hog_dp"),
-    ("void at::native::reduce_kernel<512, 1>", "fused_elementwise_hog_dp"),
-    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel", "other"),
-])
-def test_op_families_key_on_the_ports_kernel_names(name, family):
-    assert profiling.op_family(name) == family

@@ -869,3 +869,31 @@ def test_profiled_windows_of_lone_launches_are_complete(cuda):
         assert profiled(lambda: x.add_(1.0))["launches"]["transpose"] == 0
     assert device_ms(lambda: transpose_cuda.transpose_last2(x), reps=5,
                      launches={"transpose": 1}) > 0
+
+
+def test_a_span_holds_its_launchs_runtime_record(cuda):
+    """utils/profiling.py::span: a span around one torch.cuda._sleep
+    launch holds that launch's cudaLaunchKernel record on torch.profiler's
+    clock, and the kernel's device event carries the record's
+    correlation id: span times and the CUDA runtime's records share one
+    clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from partsbaseddetector_tpu_torch.utils.profiling import recording, span
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with recording() as rec:
+            with span("sleep"):
+                torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    (s,) = rec.spans
+    events = prof.profiler.kineto_results.events()
+    (launch,) = [e for e in events if e.name() == "cudaLaunchKernel"]
+    (kernel,) = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" in e.name()]
+    assert s.start_ns <= launch.start_ns() <= launch.end_ns() <= s.end_ns
+    assert launch.correlation_id() != 0
+    assert launch.correlation_id() in (kernel.correlation_id(),
+                                       kernel.linked_correlation_id())
+    assert kernel.start_ns() >= launch.start_ns()
