@@ -1464,10 +1464,19 @@ def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
         card=f"'{card}'")
 
 
-def capture_transposes(run, dtm) -> list:
+def eager_dp(det) -> None:
+    """Drop det's DP graphs (ops/dp_graph.py), so that its next call of
+    each shape runs the DP eagerly. A replayed graph runs none of the
+    DP's Python: the phases that record the DP's calls from inside it
+    start here."""
+    det._dp_graphs.clear()
+
+
+def capture_transposes(run, dtm, det) -> list:
     """The input pairs of every x-pass transpose of run() (the y pass's
     values and pointers, then the x pass's values and pointers), recorded
-    through ops/distance_transform.py's transpose_last2_pair."""
+    through ops/distance_transform.py's transpose_last2_pair, with det's
+    DP eager."""
     calls = []
     orig = dtm.transpose_last2_pair
 
@@ -1475,6 +1484,7 @@ def capture_transposes(run, dtm) -> list:
         calls.append((x, y))
         return orig(x, y)
 
+    eager_dp(det)
     dtm.transpose_last2_pair = record
     try:
         run()
@@ -1489,7 +1499,7 @@ def count_dt_glue(torch, dt_cuda, dtm, det, im) -> None:
     the profiler: ops/dt_cuda.py::flatten_maps (the per-map parameters
     broadcast and made contiguous, once per 1-D pass) and the four
     negated slices of wdef in ops/distance_transform.py (once per 2-D
-    DT)."""
+    DT), recorded from an eager DP."""
     import partsbaseddetector_tpu_torch.ops.dp as dp
 
     flat_calls, wdefs = [], []
@@ -1503,11 +1513,14 @@ def count_dt_glue(torch, dt_cuda, dtm, det, im) -> None:
         wdefs.append(wdef)
         return orig_dt(score, wdef, *args, **kwargs)
 
+    eager_dp(det)
     dt_cuda.flatten_maps, dp.shift_distance_transform_2d_packed = record_flat, record_dt
     try:
         det.detect(im)
     finally:
         dt_cuda.flatten_maps, dp.shift_distance_transform_2d_packed = orig_flat, orig_dt
+    if not flat_calls or not wdefs:
+        raise AssertionError("dt_glue: a detect ran no DT wrapper")
     flat = profiled(lambda: [orig_flat(*c) for c in flat_calls], 1)
     neg = profiled(lambda: [-w[..., k] for w in wdefs for k in range(4)], 1)
     log("dt_glue", flatten_maps_calls=len(flat_calls),
@@ -1557,10 +1570,10 @@ def check_transpose(torch, np, tc, dtm, gen, det, im) -> dict:
                                     torch.empty((0, 4, 5), dtype=torch.int32, device=dev))
     if empty[0].shape != (0, 5, 4) or empty[1].shape != (0, 5, 4):
         raise AssertionError("transpose: empty pair has the wrong shape")
-    caps = capture_transposes(lambda: det.detect(im), dtm)
+    caps = capture_transposes(lambda: det.detect(im), dtm, det)
     frames = [np.clip(im.astype(np.int16) + i, 0, 255).astype(np.uint8)
               for i in range(8)]
-    caps8 = capture_transposes(lambda: det.detect_many(frames, microbatch=8), dtm)
+    caps8 = capture_transposes(lambda: det.detect_many(frames, microbatch=8), dtm, det)
     for i, (cx, cy) in enumerate(caps + caps8):
         exact_pair(cx, cy, f"captured #{i} {tuple(cx.shape)}")
     if not caps or not caps8:

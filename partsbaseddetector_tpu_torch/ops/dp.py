@@ -5,7 +5,11 @@ Port of `partsbaseddetector_tpu/ops/dp.py` (`tree_min_sum` with its
 unrolled level schedule, `backtrack_merged`, `backtrack`). Parts are
 stored root-first (parentid[p] < p), so a leaves-to-root walk over tree
 levels is a valid schedule. All parts of one level whose grids and step
-agree run their 2-D distance transforms as one batched call.
+agree run their 2-D distance transforms as one batched call. That
+schedule, with every host-to-device copy of the DP (the parts, live
+counts and consumer extents, the weights' slices), is `dp_plan`'s: it
+follows from the shapes and the model alone, so the detector builds it
+once per shape and replays the DP as a CUDA graph (ops/dp_graph.py).
 
 Mixture combination follows passmsg (detect_fast.m:118-141):
 msg_l = max_k (DT(score_k) + bias[l, k]), with a first-max-wins
@@ -30,7 +34,7 @@ per-map parameters and live counts broadcast over it.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,65 +62,52 @@ def _levels(comp: PackedComponent) -> Dict[int, List[int]]:
     return levels
 
 
-def tree_min_sum(
+class DPGroup(NamedTuple):
+    """One batched 2-D DT of the tree DP: the parts of one tree level
+    whose octave offsets and step agree, with everything the DT call
+    takes besides the scores, on the responses' device. A plan is a
+    list of them in schedule order (leaves to root)."""
+
+    parts: List[int]
+    step: int
+    hr_par: int  # the parent grid: the DT's output size
+    wr_par: int
+    pidx: torch.Tensor  # (G,) the parts
+    shift_x: torch.Tensor  # (G, 1, 1, M)
+    shift_y: torch.Tensor
+    # (G, 1, 1, M, 4) in the DP dtype; None where the weights are trainable
+    defw: Optional[torch.Tensor]
+    # live counts (G, 1, S, M) and consumer extents (G, 1, S, M, W_child)
+    # and (G, 1, S, 1, H_parent), int32; None where the weights are
+    # trainable, and the extents also where a shift is not integral
+    nv_y: Optional[torch.Tensor]
+    nv_x: Optional[torch.Tensor]
+    ov_y: Optional[torch.Tensor]
+    ov_x: Optional[torch.Tensor]
+
+
+def dp_plan(
     resps: List[torch.Tensor],
     comp: PackedComponent,
     dcomp: DeviceComponent,
     valid_extents: Tuple[List[np.ndarray], List[np.ndarray]],
     bucket_index: int = 0,
     buckets_per_octave: int = 1,
-    tensors=None,
-):
-    """Min-sum message passing for one component over a scale bucket.
-
-    resps: the per-bucket (B, S, Hr, Wr, F) response stacks, -inf
-        outside valid extents; a part with accumulated octave offset d
-        reads bucket bucket_index - d*buckets_per_octave.
-    dcomp: the component's arrays on the responses' device.
-    valid_extents: per-bucket ((S, F) vh, (S, F) vw) NumPy lists; they
-        become per-map live counts for the DT kernel, which then skips
-        the -inf padding, and the consumer extents that let the
-        adaptive-window DT (PBD_DT_WINDOW=1) stop its scans early.
-    tensors (optional): trainable (defw (P, M, 4), bias (P, M, M),
-        root_bias (M,)) from `PackedComponent.tensors(params)`, replacing
-        dcomp's constants. The DTs then carry K4's backward and get no
-        live counts: training masks with -1e10, not -inf, so every masked
-        cell is an ordinary source, as in the JAX package's XLA DT. The
-        where-chains pass gradients to the selected branch only.
-    The weights are cast to the responses' dtype. With bf16 responses
-    (the hybrid profile) the DTs widen their sources to f32 and return
-    f32, so that a child's message, and every sum it enters, is f32 from
-    there on: the dtypes of the JAX package's Pallas route on the chip.
-    Returns (rootv (B, S, Hr, Wr), rooti int32, tables {p: packed int32
-    pointers (B, S, L_parent, H_pargrid, W_pargrid)}).
-    """
+    trainable: bool = False,
+) -> List[DPGroup]:
+    """tree_min_sum's schedule for one component over a scale bucket,
+    with every host-to-device copy the DP makes: it depends on the maps'
+    shapes, dtype and device (not their values), the model and the valid
+    extents, so a caller that runs one shape again and again builds it
+    once (the detector keeps one per image size and batch, and its CUDA
+    graph replays the DP without a copy). Arguments as tree_min_sum's;
+    trainable leaves out the weights and the live counts."""
     bucket_of = lambda d: bucket_index - d * buckets_per_octave
-    p_total, m_total = comp.filterid.shape
     ds = comp.ds_total
-    if bucket_index < int(ds.max()) * buckets_per_octave:
-        raise ValueError(
-            "root bucket must be at least max octave offset octaves coarse"
-        )
     root_resp = resps[bucket_of(0)]
     s = root_resp.shape[1]
     dev = root_resp.device
-    for r in resps:
-        if r.shape[2] >= 4096 or r.shape[3] >= 4096:
-            raise ValueError("packed pointers use 12 bits/coordinate")
-    trainable = tensors is not None
-    # the model's weights in the responses' dtype, as the JAX package
-    # casts them (bf16-rounded in the hybrid profile; the f32 DT then
-    # widens them with its sources)
-    dtype = root_resp.dtype
-    defw_all, bias_all, root_bias = (
-        t.to(dtype) for t in
-        (tensors if trainable else (dcomp.defw, dcomp.bias, dcomp.root_bias))
-    )
-
-    def part_score(p: int) -> torch.Tensor:
-        # align within-bucket scales: a finer bucket may hold more
-        r = resps[bucket_of(int(ds[p]))][:, :s]
-        return r.index_select(-1, dcomp.filterid[p]).permute(0, 1, 4, 2, 3)
+    defw_all = None if trainable else dcomp.defw.to(root_resp.dtype)
 
     def grid_of(p: int) -> Tuple[int, int]:
         r = resps[bucket_of(int(ds[p]))]
@@ -156,6 +147,115 @@ def tree_min_sum(
         )
         return nvy, nvx, ovy, ovx
 
+    plan: List[DPGroup] = []
+    levels = _levels(comp)
+    for lvl in sorted(levels, reverse=True):
+        # stacked parts must share every DT shape parameter
+        groups: Dict[tuple, List[int]] = {}
+        for p in levels[lvl]:
+            par = int(comp.parentid[p])
+            key = (int(ds[p]), int(ds[par]), int(comp.step[p]))
+            groups.setdefault(key, []).append(p)
+
+        for (_, _, step), parts in groups.items():
+            hr_par, wr_par = grid_of(int(comp.parentid[parts[0]]))
+            pidx = torch.as_tensor(parts, device=dev)
+            nv_y = nv_x = ov_y = ov_x = defw = None
+            if not trainable:
+                # (G, 1, S, M[, W]): broadcast over the images
+                nvys, nvxs, ovys, ovxs = (
+                    np.stack(c)[:, None] for c in zip(*(
+                        live_counts(p, int(comp.parentid[p]), grid_of(p)[1], hr_par)
+                        for p in parts
+                    ))
+                )
+                nv_y = torch.as_tensor(nvys, device=dev)
+                nv_x = torch.as_tensor(nvxs, device=dev)
+                # the consumer extents also tell the DT that the shifts
+                # are integral, which K5 needs: decided here, on the
+                # host copy of the model
+                shifts = np.stack([comp.shift_x[parts], comp.shift_y[parts]])
+                if np.array_equal(shifts, np.round(shifts)):
+                    ov_y, ov_x = (
+                        torch.as_tensor(o, dtype=torch.int32, device=dev)
+                        for o in (ovys, ovxs)
+                    )
+                defw = defw_all[pidx][:, None, None]
+            plan.append(DPGroup(
+                parts, step, hr_par, wr_par, pidx,
+                dcomp.shift_x[pidx][:, None, None],
+                dcomp.shift_y[pidx][:, None, None],
+                defw, nv_y, nv_x, ov_y, ov_x,
+            ))
+    return plan
+
+
+def tree_min_sum(
+    resps: List[torch.Tensor],
+    comp: PackedComponent,
+    dcomp: DeviceComponent,
+    valid_extents: Tuple[List[np.ndarray], List[np.ndarray]],
+    bucket_index: int = 0,
+    buckets_per_octave: int = 1,
+    tensors=None,
+    plan: Optional[List[DPGroup]] = None,
+):
+    """Min-sum message passing for one component over a scale bucket.
+
+    resps: the per-bucket (B, S, Hr, Wr, F) response stacks, -inf
+        outside valid extents; a part with accumulated octave offset d
+        reads bucket bucket_index - d*buckets_per_octave.
+    dcomp: the component's arrays on the responses' device.
+    valid_extents: per-bucket ((S, F) vh, (S, F) vw) NumPy lists; they
+        become per-map live counts for the DT kernel, which then skips
+        the -inf padding, and the consumer extents that let the
+        adaptive-window DT (PBD_DT_WINDOW=1) stop its scans early.
+    tensors (optional): trainable (defw (P, M, 4), bias (P, M, M),
+        root_bias (M,)) from `PackedComponent.tensors(params)`, replacing
+        dcomp's constants. The DTs then carry K4's backward and get no
+        live counts: training masks with -1e10, not -inf, so every masked
+        cell is an ordinary source, as in the JAX package's XLA DT. The
+        where-chains pass gradients to the selected branch only.
+    plan (optional): dp_plan's schedule for these arguments, built here
+        when not given; with it the DP copies nothing to the device.
+    The weights are cast to the responses' dtype. With bf16 responses
+    (the hybrid profile) the DTs widen their sources to f32 and return
+    f32, so that a child's message, and every sum it enters, is f32 from
+    there on: the dtypes of the JAX package's Pallas route on the chip.
+    Returns (rootv (B, S, Hr, Wr), rooti int32, tables {p: packed int32
+    pointers (B, S, L_parent, H_pargrid, W_pargrid)}).
+    """
+    bucket_of = lambda d: bucket_index - d * buckets_per_octave
+    p_total, m_total = comp.filterid.shape
+    ds = comp.ds_total
+    if bucket_index < int(ds.max()) * buckets_per_octave:
+        raise ValueError(
+            "root bucket must be at least max octave offset octaves coarse"
+        )
+    root_resp = resps[bucket_of(0)]
+    s = root_resp.shape[1]
+    dev = root_resp.device
+    for r in resps:
+        if r.shape[2] >= 4096 or r.shape[3] >= 4096:
+            raise ValueError("packed pointers use 12 bits/coordinate")
+    trainable = tensors is not None
+    if plan is None:
+        plan = dp_plan(resps, comp, dcomp, valid_extents, bucket_index,
+                       buckets_per_octave, trainable)
+    # the model's weights in the responses' dtype, as the JAX package
+    # casts them (bf16-rounded in the hybrid profile; the f32 DT then
+    # widens them with its sources)
+    dtype = root_resp.dtype
+    defw_all, bias_all, root_bias = (
+        t.to(dtype) for t in
+        (tensors if trainable else (dcomp.defw, dcomp.bias, dcomp.root_bias))
+    )
+
+    def part_score(p: int) -> torch.Tensor:
+        # align within-bucket scales: a finer bucket may hold more
+        r = resps[bucket_of(int(ds[p]))][:, :s]
+        return r.index_select(-1, dcomp.filterid[p]).permute(0, 1, 4, 2, 3)
+
     def combine(p: int, dt: torch.Tensor, ptr: torch.Tensor):
         """Mixture combine for one part, all parent mixtures l at once:
         a first-max-wins where-chain over child mixtures k.
@@ -170,64 +270,35 @@ def tree_min_sum(
             ptrb = torch.where(pred, (k << 24) | ptr[:, :, None, k], ptrb)
         return best, ptrb
 
-    levels = _levels(comp)
     acc: Dict[int, torch.Tensor] = {}
     tables: Dict[int, torch.Tensor] = {}
-    for lvl in sorted(levels, reverse=True):
-        # stacked parts must share every DT shape parameter
-        groups: Dict[tuple, List[int]] = {}
-        for p in levels[lvl]:
+    for g in plan:
+        scores = []
+        for p in g.parts:
+            sc = part_score(p)
+            if p in acc:
+                sc = sc + acc.pop(p)
+            scores.append(sc)
+        score_g = torch.stack(scores)  # (G, B, S, M, H, W)
+        dt_g, ptr_g = shift_distance_transform_2d_packed(
+            score_g,
+            defw_all[g.pidx][:, None, None] if g.defw is None else g.defw,
+            g.shift_x,
+            g.shift_y,
+            dlen_x=g.wr_par,
+            dlen_y=g.hr_par,
+            step=g.step,
+            valid_h=g.nv_y,
+            valid_w=g.nv_x,
+            differentiable=trainable,
+            out_valid_h=g.ov_y,
+            out_valid_w=g.ov_x,
+        )
+        for i, p in enumerate(g.parts):
+            msg, tbl = combine(p, dt_g[i], ptr_g[i])
+            tables[p] = tbl
             par = int(comp.parentid[p])
-            key = (int(ds[p]), int(ds[par]), int(comp.step[p]))
-            groups.setdefault(key, []).append(p)
-
-        for (_, _, step), parts in groups.items():
-            hr_par, wr_par = grid_of(int(comp.parentid[parts[0]]))
-            scores, counts = [], []
-            for p in parts:
-                sc = part_score(p)
-                if p in acc:
-                    sc = sc + acc.pop(p)
-                scores.append(sc)
-                if not trainable:
-                    counts.append(live_counts(
-                        p, int(comp.parentid[p]), sc.shape[-1], hr_par
-                    ))
-            score_g = torch.stack(scores)  # (G, B, S, M, H, W)
-            pidx = torch.as_tensor(parts, device=dev)
-            nv_y = nv_x = ov_y = ov_x = None
-            if not trainable:
-                # (G, 1, S, M[, W]): broadcast over the images
-                nvys, nvxs, ovys, ovxs = (
-                    np.stack(c)[:, None] for c in zip(*counts)
-                )
-                nv_y = torch.as_tensor(nvys, device=dev)
-                nv_x = torch.as_tensor(nvxs, device=dev)
-                # the consumer extents also tell the DT that the shifts
-                # are integral, which K5 needs: decided here, on the
-                # host copy of the model
-                shifts = np.stack([comp.shift_x[parts], comp.shift_y[parts]])
-                if np.array_equal(shifts, np.round(shifts)):
-                    ov_y, ov_x = ovys, ovxs
-            dt_g, ptr_g = shift_distance_transform_2d_packed(
-                score_g,
-                defw_all[pidx][:, None, None],  # (G, 1, 1, M, 4)
-                dcomp.shift_x[pidx][:, None, None],  # (G, 1, 1, M)
-                dcomp.shift_y[pidx][:, None, None],
-                dlen_x=wr_par,
-                dlen_y=hr_par,
-                step=step,
-                valid_h=nv_y,
-                valid_w=nv_x,
-                differentiable=trainable,
-                out_valid_h=ov_y,
-                out_valid_w=ov_x,
-            )
-            for i, p in enumerate(parts):
-                msg, tbl = combine(p, dt_g[i], ptr_g[i])
-                tables[p] = tbl
-                par = int(comp.parentid[p])
-                acc[par] = msg if par not in acc else acc[par] + msg
+            acc[par] = msg if par not in acc else acc[par] + msg
 
     root = part_score(0)
     if 0 in acc:

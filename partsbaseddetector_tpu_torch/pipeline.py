@@ -42,7 +42,8 @@ from .ops.conv import (
     filter_responses_fft,
 )
 from .ops.conv_cuda import filter_responses_grouped
-from .ops.dp import tree_min_sum
+from .ops.dp import dp_plan, tree_min_sum
+from .ops.dp_graph import DPGraph, graphable
 from .ops.pyramid import (
     PyramidPlan,
     build_plan,
@@ -144,6 +145,7 @@ def root_scores(
     collect_responses: Optional[List[torch.Tensor]] = None,
     conv_dtype=torch.float32,
     conv=None,
+    dp_graph: Optional[DPGraph] = None,
 ) -> List[BucketScores]:
     """Run HOG pyramid -> responses -> tree DP for every (bucket,
     component). im: one (H, W, 3) frame or a (B, H, W, 3) batch on
@@ -185,7 +187,14 @@ def root_scores(
     conv (optional, with params and the spatial f32 route): the conv
     that takes (features, params["filters"]) to the responses under
     autograd; default ops/conv.py::filter_responses. The sharded train
-    step passes its tensor-parallel one (parallel/mesh.py)."""
+    step passes its tensor-parallel one (parallel/mesh.py).
+    dp_graph (optional; the detector's, one per image size and batch):
+    the DP plans of this shape, built once, and where `ops/dp_graph.py::
+    graphable` holds (CUDA maps, no params, no autograd recording) the
+    CUDA graph that replays every pair's DP at once, under one `dp`
+    span. The BucketScores then hold the graph's tensors, which its next
+    replay overwrites: the caller consumes them on the same stream first.
+    Elsewhere the DP runs eagerly, a `dp` span a pair."""
     if engine not in ("spatial", "fourier"):
         raise ValueError(f"unknown conv engine: {engine}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -279,40 +288,59 @@ def root_scores(
         if plan.buckets[0].scale_indices
         else 1
     )
-    out: List[BucketScores] = []
-    for b in range(len(plan.buckets)):
-        for c, comp in enumerate(packed.components):
-            if b < comp.max_ds * bpo:
-                # some part's octave-finer level would not exist at this
-                # root scale (detect_fast.m level bound)
-                continue
+    # the (bucket, component) pairs: a component whose parts sit some
+    # octaves finer skips the buckets where that finer level would not
+    # exist at the root scale (detect_fast.m level bound)
+    pairs = [
+        (b, c, comp)
+        for b in range(len(plan.buckets))
+        for c, comp in enumerate(packed.components)
+        if b >= comp.max_ds * bpo
+    ]
+    trainable = params is not None
 
-            def run(resps_, tensors_, comp=comp, c=c, b=b):
-                return tree_min_sum(
-                    resps_,
-                    comp,
-                    dmodel.components[c],
-                    valid_extents=(vhs, vws),
-                    bucket_index=b,
-                    buckets_per_octave=bpo,
-                    tensors=tensors_,
-                )
+    def dp_pair(resps_, b, c, comp):
+        dcomp = dmodel.components[c]
+        plan_ = None
+        if dp_graph is not None and not trainable:
+            plan_ = dp_graph.plan((b, c), lambda: dp_plan(
+                resps_, comp, dcomp, (vhs, vws), b, bpo
+            ))
 
-            tensors = comp.tensors(params) if params is not None else None
+        def run(resps_, tensors_):
+            return tree_min_sum(
+                resps_, comp, dcomp, valid_extents=(vhs, vws), bucket_index=b,
+                buckets_per_octave=bpo, tensors=tensors_, plan=plan_,
+            )
+
+        tensors = comp.tensors(params) if trainable else None
+        if trainable and not with_tables and remat:
+            rootv, rooti, _ = torch.utils.checkpoint.checkpoint(
+                run, resps_, tensors, use_reentrant=False
+            )
+            return rootv, rooti, {}
+        rootv, rooti, tables = run(resps_, tensors)
+        return rootv, rooti, tables if with_tables else {}
+
+    if dp_graph is not None and graphable(resps, trainable):
+        with span("dp"):
+            results = dp_graph.run(
+                resps, lambda r: [dp_pair(r, *pair) for pair in pairs]
+            )
+    else:
+        if dp_graph is not None:
+            dp_graph.note_eager()
+        results = []
+        for pair in pairs:
             with span("dp"):
-                if params is not None and not with_tables and remat:
-                    rootv, rooti, _ = torch.utils.checkpoint.checkpoint(
-                        run, resps, tensors, use_reentrant=False
-                    )
-                    tables = {}
-                else:
-                    rootv, rooti, tables = run(resps, tensors)
-                    if not with_tables:
-                        tables = {}
-            if single:
-                rootv, rooti = rootv[0], rooti[0]
-                tables = {p: t[0] for p, t in tables.items()}
-            out.append(BucketScores(b, c, rootv, rooti, tables))
+                results.append(dp_pair(resps, *pair))
+
+    out: List[BucketScores] = []
+    for (b, c, _), (rootv, rooti, tables) in zip(pairs, results):
+        if single:
+            rootv, rooti = rootv[0], rooti[0]
+            tables = {p: t[0] for p, t in tables.items()}
+        out.append(BucketScores(b, c, rootv, rooti, tables))
     return out
 
 

@@ -1,8 +1,11 @@
 """Utilities: C-semantics rounding, observability, input validation, the
 device. The JAX package's `utils` re-exports; its `time_jitted` is
 `time_fn` here (the port runs eagerly and has no jit), and the stage
-spans (`span`, `recording`) are the port's own."""
+spans (`span`, `recording`) and the DP graph's counter
+(`dp_graph_counts`) are the port's own."""
 
 from .device import resolve_device
-from .profiling import Timer, checked, recording, span, time_fn, trace, validate_image
+from .profiling import (
+    Timer, checked, dp_graph_counts, recording, span, time_fn, trace, validate_image,
+)
 from .rounding import cround

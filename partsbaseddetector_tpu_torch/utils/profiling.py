@@ -23,6 +23,8 @@ prints, SURVEY.md §5):
     profiler window every reading here takes, the hand kernels'
     launches by family as their wrappers count them, and the check
     that a window recorded a kernel event for each;
+  - dp_graph_counts(): the inference DP's CUDA-graph captures, replays
+    and eager calls;
   - cuda_ms(), device_ms(): the CUDA-event and profiler timers of the
     tools and chip_smoke.py;
   - validate_image(): input validation for the public detect API.
@@ -396,6 +398,18 @@ def launch_counts() -> Dict[str, int]:
         "conv": conv_cuda.launches + conv_proto_cuda.launches,
         "transpose": transpose_cuda.launches,
     }
+
+
+def dp_graph_counts() -> Dict[str, int]:
+    """The inference DP's calls so far by how they ran
+    (ops/dp_graph.py): `captures` (a shape's second call, captured as a
+    CUDA graph and replayed once), `replays` and `eager` (a shape's
+    first call, and every call the graph does not engage for: CPU maps,
+    trainable weights, autograd on). The graph's hit share is replays
+    over the three."""
+    from ..ops import dp_graph
+
+    return dict(dp_graph.counts)
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:
