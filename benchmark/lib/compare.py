@@ -3,13 +3,16 @@ held against the plain reference of the same frame.
 
 A detector's answer to a frame is a list of candidates, best first,
 each with a root score, one box per part, the component and a mixture
-per part. Each candidate is turned back into its placement: the level
-whose box scale its root box's width gives, and every part's cell from
-its box's corner. Four numbers are then taken, each the largest over
+per part. Each candidate is turned back into its placement in its own
+component's tree: the level whose box scale its root box's width gives,
+and every part's cell from its box's corner. A candidate whose component
+the model lacks, or whose parts are not that component's count, makes
+every number inf. Four numbers are then taken, each the largest over
 every compared answer:
 
-    score_gap   |claimed score - the reference's best score at that root
-                cell|: a wrong score or a root on the wrong cell
+    score_gap   |claimed score - the reference's best score of the
+                candidate's component at that root cell|: a wrong score,
+                a root on the wrong cell or in the wrong component
     place_gap   |the reference's best score at the root cell - the
                 reference's score of the claimed parts and mixtures|: a
                 part on the wrong cell or with the wrong mixture (a tie
@@ -17,10 +20,10 @@ every compared answer:
     box_gap_px  |claimed box - the box of the placement it decodes to|,
                 in pixels: a box off the cell grid
     list_gap    the claimed scores, in order, against the reference's
-                scores of every root cell at or above the threshold, best
-                first, up to the candidate budget; a list shorter than
-                the other counts the threshold in its place: a candidate
-                left out, added or out of order
+                scores of every (component, root cell) at or above the
+                threshold, best first, up to the candidate budget; a list
+                shorter than the other counts the threshold in its place:
+                a candidate left out, added or out of order
 
 Scores are the model's own units. The limits of each configuration are
 in its file, with the readings they were set from in PERF.md.
@@ -47,38 +50,43 @@ def answer_readings(cands, det, model, cfg: dict, ref) -> Dict[str, float]:
     pad = lambda a: np.concatenate([a, np.full(n - len(a), thresh)])
     out = {"list_gap": float(np.abs(pad(got) - pad(want)).max()) if n else 0.0,
            "score_gap": 0.0, "place_gap": 0.0, "box_gap_px": 0.0}
-    if not cands:
-        return out
+    trees = model.trees
+    for c in cands:
+        nparts = len(trees[c.component].parent) if 0 <= c.component < len(trees) else -1
+        if len(c.parts) != nparts or c.mixtures is None or len(c.mixtures) != nparts:
+            return {k: math.inf for k in out}
     dev = det.root.device
     fh, fw = cfg["filter_h"], cfg["filter_w"]
     pady, padx = fh - 2, fw - 2
-    boxes = np.stack([c.parts for c in cands]).astype(np.float64)  # (N, P, 4)
-    mix = np.stack([c.mixtures for c in cands]).astype(np.int64)
-    if any(c.component != 0 for c in cands):
-        return {k: math.inf for k in out}
     scales = np.asarray(det.scales, dtype=np.float64)
-    width = boxes[:, 0, 2] - boxes[:, 0, 0] + 1.0
-    est = np.where(width > 0, width / fw, np.nan)
-    level = np.abs(np.log(scales)[None, :] - np.log(est)[:, None]).argmin(1)
-    level = np.where(np.isfinite(est), level, 0)
-    sc = scales[level][:, None]
-    xs = np.rint(boxes[..., 0] / sc).astype(np.int64) + padx
-    ys = np.rint(boxes[..., 1] / sc).astype(np.int64) + pady
-    x1 = (xs - padx) * sc
-    y1 = (ys - pady) * sc
-    rebuilt = np.stack([x1, y1, x1 + fw * sc - 1, y1 + fh * sc - 1], -1)
-    box_gap = np.abs(boxes - rebuilt).max() if np.isfinite(est).all() else math.inf
-    k = model.filters.shape[1]
-    bad_mix = ((mix < 0) | (mix >= k)).any(1)
     t = lambda a: torch.as_tensor(a, device=dev)
-    lv = t(level)
-    best = ref.root_score_at(det, lv, t(xs[:, 0]), t(ys[:, 0])).cpu().numpy()
-    placed = ref.placement_score(det, model, lv, t(xs), t(ys),
-                                 t(mix.clip(0, k - 1))).cpu().numpy()
-    placed[bad_mix] = -math.inf
     gap = lambda a, b: float(np.nan_to_num(np.abs(a - b), nan=math.inf).max())
-    out.update(score_gap=gap(got, best), place_gap=gap(best, placed),
-               box_gap_px=float(box_gap))
+    comps = np.array([c.component for c in cands])
+    for comp in np.unique(comps):
+        rows = np.flatnonzero(comps == comp)
+        boxes = np.stack([cands[i].parts for i in rows]).astype(np.float64)  # (N, P, 4)
+        mix = np.stack([cands[i].mixtures for i in rows]).astype(np.int64)
+        width = boxes[:, 0, 2] - boxes[:, 0, 0] + 1.0
+        est = np.where(width > 0, width / fw, np.nan)
+        level = np.abs(np.log(scales)[None, :] - np.log(est)[:, None]).argmin(1)
+        level = np.where(np.isfinite(est), level, 0)
+        sc = scales[level][:, None]
+        xs = np.rint(boxes[..., 0] / sc).astype(np.int64) + padx
+        ys = np.rint(boxes[..., 1] / sc).astype(np.int64) + pady
+        x1 = (xs - padx) * sc
+        y1 = (ys - pady) * sc
+        rebuilt = np.stack([x1, y1, x1 + fw * sc - 1, y1 + fh * sc - 1], -1)
+        box_gap = gap(boxes, rebuilt) if np.isfinite(est).all() else math.inf
+        k = trees[comp].defs.shape[1]
+        bad_mix = ((mix < 0) | (mix >= k)).any(1)
+        lv = t(level)
+        best = ref.root_score_at(det, int(comp), lv, t(xs[:, 0]), t(ys[:, 0])).cpu().numpy()
+        placed = ref.placement_score(det, model, int(comp), lv, t(xs), t(ys),
+                                     t(mix.clip(0, k - 1))).cpu().numpy()
+        placed[bad_mix] = -math.inf
+        out.update(score_gap=max(out["score_gap"], gap(got[rows], best)),
+                   place_gap=max(out["place_gap"], gap(best, placed)),
+                   box_gap_px=max(out["box_gap_px"], box_gap))
     return out
 
 

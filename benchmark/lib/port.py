@@ -1,6 +1,9 @@
 """The system under test: the torch port's detector, built from the
-run's generated arrays. The only module of the harness, with the traced
-run's counter readings, that imports the program."""
+run's generated arrays (lib/inputs.py): the filter pool, and one
+component of the program's `Model` a tree, its parts indexing the pool,
+with deformations and biases of its own. The only module of the
+harness, with the traced run's counter readings, that imports the
+program."""
 
 from __future__ import annotations
 
@@ -15,28 +18,37 @@ def detector(cfg: dict, arrays: dict, device, **overrides):
     from partsbaseddetector_tpu_torch import PartsBasedDetector
     from partsbaseddetector_tpu_torch.models.model import Model
 
-    p_, k_ = cfg["parts"], cfg["mixtures"]
     filters = arrays["filters"].cpu().numpy()
-    defs = arrays["defs"].cpu().numpy()
-    anchors = arrays["anchors"].cpu().numpy()
-    bias = arrays["bias"].cpu().numpy()
-    pools = [bias[0, :1]] + [bias[p] for p in range(1, p_)]
-    biasid, offset = [], 0
-    for tbl in pools:
-        biasid.append(offset + np.arange(tbl.size, dtype=np.int32).reshape(tbl.shape))
-        offset += tbl.size
-    ids = lambda p: np.arange(p * k_, (p + 1) * k_, dtype=np.int32)
+    defs, anchors, tables = [], [], []
+    parentid, filterid, defid, biasid = [], [], [], []
+    offset = 0
+    for t in arrays["trees"]:
+        fid = t["filterid"].cpu().numpy().astype(np.int32)
+        d = t["defs"].cpu().numpy()
+        a = t["anchors"].cpu().numpy()
+        bias = t["bias"].cpu().numpy()
+        p_, k_ = fid.shape
+        base = len(defs)
+        defs += [d[p, k].astype(np.float32) for p in range(p_) for k in range(k_)]
+        anchors += [np.array([a[p, k, 0], a[p, k, 1], 0], np.int32)
+                    for p in range(p_) for k in range(k_)]
+        # the root's (1, K) table, then each part's (K_parent, K)
+        ids = []
+        for tbl in [bias[0, :1]] + [bias[p] for p in range(1, p_)]:
+            ids.append(offset + np.arange(tbl.size, dtype=np.int32).reshape(tbl.shape))
+            tables.append(tbl.reshape(-1))
+            offset += tbl.size
+        parentid.append(t["parent"].cpu().numpy().astype(np.int32))
+        filterid.append(list(fid))
+        defid.append([base + np.arange(p * k_, (p + 1) * k_, dtype=np.int32)
+                      for p in range(p_)])
+        biasid.append(ids)
     model = Model(
         name=cfg["name"], interval=cfg["interval"], sbin=cfg["sbin"], thresh=cfg["thresh"],
-        filters=[np.ascontiguousarray(filters[p, k]) for p in range(p_) for k in range(k_)],
-        defs=[defs[p, k].astype(np.float32) for p in range(p_) for k in range(k_)],
-        anchors=[np.array([anchors[p, k, 0], anchors[p, k, 1], 0], np.int32)
-                 for p in range(p_) for k in range(k_)],
-        biases=np.concatenate([t.reshape(-1) for t in pools]).astype(np.float32),
-        parentid=[np.array(cfg["parents"], np.int32)],
-        filterid=[[ids(p) for p in range(p_)]],
-        defid=[[ids(p) for p in range(p_)]],
-        biasid=[biasid],
+        filters=[np.ascontiguousarray(f) for f in filters],
+        defs=defs, anchors=anchors,
+        biases=np.concatenate(tables).astype(np.float32),
+        parentid=parentid, filterid=filterid, defid=defid, biasid=biasid,
         maxsize=(cfg["filter_h"], cfg["filter_w"]),
     )
     kw = dict(max_detections=cfg["max_detections"], conv_engine=cfg["conv_engine"],

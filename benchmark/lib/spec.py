@@ -13,6 +13,18 @@ each metric names its reader. They are found so:
 
 so that a cell, a configuration, a mix or a metric is added by adding
 files and entries, without editing a file already there.
+
+A configuration's file gives its model in one of two forms (`trees`):
+
+    one tree       "parts" P, "mixtures" K, "parents" (P,), "components" 1:
+                   part p's mixture k is filter p*K + k of a pool of P*K
+    several trees  "pool" F, "mixtures" K and "trees", one entry a
+                   component: {"parents": (P_c,), "filters": P_c rows of
+                   K indices into the pool of F filters}; components may
+                   differ in size and depth and share filters
+
+Parts are root first (parents[0] == 0, parents[p] < p); every filter has
+the file's filter_h x filter_w.
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ import json
 import re
 import sys
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
@@ -56,6 +68,61 @@ def _line(value, what: str) -> str:
             or "\t" in value:
         raise SpecError(f"{what}: must be one line of 1-200 characters")
     return value
+
+
+def _count(value, what: str) -> int:
+    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+        raise SpecError(f"{what}: {value!r} is not a whole number of at least 1")
+    return value
+
+
+def _tree(parents, filters, pool: int, k: int, what: str) -> dict:
+    if not isinstance(parents, list) or not parents:
+        raise SpecError(f"{what}: parents must be a list of at least one part")
+    for p, q in enumerate(parents):
+        if isinstance(q, bool) or not isinstance(q, int) or not (0 <= q < p or p == q == 0):
+            raise SpecError(f"{what}: part {p}'s parent {q!r} is not a part before it")
+    if not isinstance(filters, list) or len(filters) != len(parents):
+        raise SpecError(f"{what}: {len(parents)} parts need as many rows of filters")
+    for p, row in enumerate(filters):
+        if not isinstance(row, list) or len(row) != k:
+            raise SpecError(f"{what}: part {p} names {row!r}, not {k} pool filters")
+        for f in row:
+            if isinstance(f, bool) or not isinstance(f, int) or not 0 <= f < pool:
+                raise SpecError(f"{what}: part {p}'s filter {f!r} is outside the pool of {pool}")
+    return {"parents": list(parents), "filters": [list(r) for r in filters]}
+
+
+def trees(cfg: dict) -> Tuple[int, List[dict]]:
+    """(pool size, trees) of a configuration in either form (above), each
+    tree {"parents", "filters"}: the one tree is the one-component case.
+    Raises SpecError where the model is malformed."""
+    what = f"config {cfg.get('name')}"
+    k = _count(cfg.get("mixtures"), f"{what}: mixtures")
+    if "trees" in cfg:
+        for key in ("parts", "parents"):
+            if key in cfg:
+                raise SpecError(f"{what}: {key!r} belongs to the one-tree form, not beside trees")
+        pool = _count(cfg.get("pool"), f"{what}: pool")
+        given = cfg["trees"]
+        if not isinstance(given, list) or not given:
+            raise SpecError(f"{what}: trees must be a list of at least one component")
+        if cfg.get("components", len(given)) != len(given):
+            raise SpecError(f"{what}: components {cfg['components']!r} for {len(given)} trees")
+        out = []
+        for c, t in enumerate(given):
+            if not isinstance(t, dict) or set(t) != {"parents", "filters"}:
+                raise SpecError(f"{what}: tree {c} must have the keys parents and filters")
+            out.append(_tree(t["parents"], t["filters"], pool, k, f"{what}: tree {c}"))
+        return pool, out
+    parts = _count(cfg.get("parts"), f"{what}: parts")
+    if cfg.get("components", 1) != 1:
+        raise SpecError(f"{what}: the one-tree form has one component; give trees for more")
+    parents = cfg.get("parents")
+    if not isinstance(parents, list) or len(parents) != parts:
+        raise SpecError(f"{what}: parents must list the {parts} parts")
+    filters = [[p * k + m for m in range(k)] for p in range(parts)]
+    return parts * k, [_tree(parents, filters, parts * k, k, what)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +224,7 @@ def load(bench_json: Path = ROOT / "BENCHMARK.json",
         path = bench_json.parent / c["file"]
         if not path.is_file():
             raise SpecError(f"config {c['name']}: {c['file']} not found")
+        trees(json.loads(path.read_text()))
         configs[c["name"]] = c
     workloads = {}
     for w in data["workloads"]:

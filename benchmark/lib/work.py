@@ -17,12 +17,19 @@ their own sizes, whatever stacks an implementation pads them into:
 correlation reads (`interval / buckets_per_octave` consecutive levels
 padded to the largest of them plus the filter less one), a figure of
 the implementation that no metric reads.
+
+A model's filters are its pool (lib/spec.py::trees), correlated once
+however many parts of however many components name each; its DT
+children are every component's parts but the root, each with its K
+mixtures.
 """
 
 from __future__ import annotations
 
 import math
 from typing import List, Tuple
+
+from . import spec
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -69,7 +76,13 @@ def response_cells(cfg: dict) -> List[int]:
 
 
 def n_filters(cfg: dict) -> int:
-    return cfg["parts"] * cfg["mixtures"] * cfg["components"]
+    """Filters of the pool."""
+    return spec.trees(cfg)[0]
+
+
+def dt_children(cfg: dict) -> int:
+    """Distance transforms a level: sum over components of (P_c - 1) K."""
+    return sum(len(t["parents"]) - 1 for t in spec.trees(cfg)[1]) * cfg["mixtures"]
 
 
 def filter_macs(cfg: dict) -> int:
@@ -115,11 +128,10 @@ def conv_bound_s(cfg: dict, images: int = 1, work=conv_work) -> float:
 
 def dt_bytes(cfg: dict, images: int = 1) -> float:
     """Bytes of every DT pass of a detect: for each level and each child
-    part's mixture, the y pass reads its source and writes values and
+    part's mixture (dt_children), the y pass reads its source and writes values and
     pointers (12 bytes a cell), the x pass reads those values and
     pointers and writes its own (16 bytes a cell)."""
-    children = (cfg["parts"] - 1) * cfg["mixtures"] * cfg["components"]
-    return images * 28.0 * children * sum(response_cells(cfg))
+    return images * 28.0 * dt_children(cfg) * sum(response_cells(cfg))
 
 
 def dt_bound_s(cfg: dict, images: int = 1) -> float:
@@ -133,5 +145,4 @@ def model_flops(cfg: dict) -> float:
     DT_OPS_PER_CELL an output cell). The HOG is not counted."""
     cells = sum(response_cells(cfg))
     conv = 2.0 * cells * filter_macs(cfg) * n_filters(cfg)
-    children = (cfg["parts"] - 1) * cfg["mixtures"] * cfg["components"]
-    return conv + 2.0 * DT_OPS_PER_CELL * cells * children
+    return conv + 2.0 * DT_OPS_PER_CELL * cells * dt_children(cfg)

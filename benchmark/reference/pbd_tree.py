@@ -15,18 +15,26 @@ of the program it judges.
          strongest colour channel and the orientation choice in float32,
          the precision the f32 profile states), padded by (pad+1) cells
          with the occlusion channel set to 1 on the pad frame
-      -> valid correlation with every filter (float64)
-      -> tree DP per level and component: for each part from the leaves
-         up, the generalized distance transform of each of its mixtures
-         by brute force (every source cell against every output cell,
-         first maximum wins), then the max over the child's mixtures
-         with the (parent mixture, child mixture) bias table
+      -> valid correlation with every filter of the pool, once a level
+         (float64)
+      -> tree DP per level and component, on the responses of the
+         filters that the component's parts name: for each part from
+         the leaves up, the generalized distance transform of each of
+         its mixtures by brute force (every source cell against every
+         output cell, first maximum wins), then the max over the child's
+         mixtures with the (parent mixture, child mixture) bias table
+         (`root_scores`; `component_root_scores` runs the parts of every
+         component at one depth together, to the same bits)
       -> root score = max over root mixtures of root score + root bias.
 
-Every root cell whose score is at least the threshold is a detection.
-`placement_score` evaluates one placement (a root cell, every part's
-cell and mixture) by the same terms, so that a detector's claimed parts
-can be scored without retracing its own argmax choices.
+A model is a pool of filters and a list of trees, one a component, of
+any sizes and depths (the shared models of Zhu & Ramanan; a one-tree
+model is one component). Every (component, level, root cell) whose score
+is at least the threshold is a detection, best first across components,
+as detect.m gathers them before any NMS. `placement_score` evaluates
+placements of one component (a root cell, every part's cell and mixture)
+by the same terms, so that a detector's claimed parts can be scored
+without retracing its own argmax choices.
 
 Octave-offset parts (an anchor ds > 0, a part read from a finer octave)
 are not modelled: every part here lies on its parent's level.
@@ -35,8 +43,9 @@ are not modelled: every part here lies on its parent's level.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +57,10 @@ HOG_VV = (0.0000, 0.3420, 0.6428, 0.8660, 0.9848, 0.9848, 0.8660, 0.6428, 0.3420
 HOG_EPS = 0.0001
 NORIENT = 18
 F64 = torch.float64
+# maps in one brute-force distance transform call: its passes hold
+# (maps, H, H, W) and (maps, H, W, W) float64, ~1.4 and ~1.8 GB at VGA's
+# finest level
+DT_MAPS = 64
 
 
 def cround(x: float) -> int:
@@ -199,18 +212,26 @@ def hog(im: torch.Tensor, sbin: int) -> torch.Tensor:
 
 
 @dataclasses.dataclass
-class Model:
-    """A tree model as plain tensors. Parts root first, parent[p] < p;
-    every part has K mixtures; defs[p, k] = (ax, bx, ay, by) positive
-    quadratic costs, anchors[p, k] = (dx, dy) cell offsets from the
-    parent, bias[p, l, k] the bias of mixture k under parent mixture l
-    (the root's in bias[0, 0])."""
+class Tree:
+    """One component: parts root first, parent[p] < p; every part has K
+    mixtures; filterid[p, k] the pool filter of part p's mixture k;
+    defs[p, k] = (ax, bx, ay, by) positive quadratic costs, anchors[p, k]
+    = (dx, dy) cell offsets from the parent, bias[p, l, k] the bias of
+    mixture k under parent mixture l (the root's in bias[0, 0])."""
 
     parent: List[int]
-    filters: torch.Tensor  # (P, K, fh, fw, 32)
+    filterid: torch.Tensor  # (P, K) int64
     defs: torch.Tensor  # (P, K, 4)
     anchors: torch.Tensor  # (P, K, 2) int64
     bias: torch.Tensor  # (P, K, K); the root's (1, K) table in bias[0, :1]
+
+
+@dataclasses.dataclass
+class Model:
+    """A pool of filters and the trees (components) that index it."""
+
+    filters: torch.Tensor  # (F, fh, fw, 32)
+    trees: List[Tree]
     interval: int
     sbin: int
     thresh: float
@@ -218,8 +239,55 @@ class Model:
     @property
     def pad(self):
         """(pady, padx) = filter size - 2 (featpyramid.m:11-12)."""
-        fh, fw = self.filters.shape[2:4]
+        fh, fw = self.filters.shape[1:3]
         return max(fh - 2, 0), max(fw - 2, 0)
+
+    @functools.cached_property
+    def forest(self) -> "Forest":
+        return Forest.of(self.trees)
+
+
+@dataclasses.dataclass
+class Forest:
+    """Every tree's parts as one list of nodes, tree after tree in part
+    order, and the DP's schedule over them: the depths from the deepest
+    up, each the nodes at that depth and the rounds in which they pass
+    their messages up, round r taking each parent's r-th child in
+    descending part order (each parent once a round)."""
+
+    filterid: torch.Tensor  # (N, K)
+    defs: torch.Tensor  # (N, K, 4)
+    anchors: torch.Tensor  # (N, K, 2)
+    bias: torch.Tensor  # (N, K, K)
+    roots: torch.Tensor  # (C,) each tree's root node
+    steps: List[Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]]
+
+    @staticmethod
+    def of(trees: List[Tree]) -> "Forest":
+        dev = trees[0].defs.device
+        up, depth, roots = [], [], []
+        for t in trees:
+            base = len(up)
+            roots.append(base)
+            for p, q in enumerate(t.parent):
+                up.append(base + q)
+                depth.append(depth[base + q] + 1 if p else 0)
+        ix = lambda a: torch.tensor(a, dtype=torch.int64, device=dev)
+        steps = []
+        for d in range(max(depth), 0, -1):
+            nodes = [n for n in range(len(up)) if depth[n] == d]
+            row = {n: i for i, n in enumerate(nodes)}
+            rounds, taken = [], {}
+            for n in reversed(nodes):
+                r = taken[up[n]] = taken.get(up[n], -1) + 1
+                if r == len(rounds):
+                    rounds.append(([], []))
+                rounds[r][0].append(row[n])
+                rounds[r][1].append(up[n])
+            steps.append((ix(nodes), [(ix(a), ix(b)) for a, b in rounds]))
+        cat = lambda name: torch.cat([getattr(t, name) for t in trees])
+        return Forest(cat("filterid"), cat("defs"), cat("anchors"), cat("bias"), ix(roots),
+                      steps)
 
 
 def pyramid(frame: torch.Tensor, model: Model):
@@ -289,29 +357,59 @@ def distance_transform(src: torch.Tensor, defs: torch.Tensor, shift: torch.Tenso
     return (tmp[:, :, None, :] - cost[:, None, :, :]).amax(dim=3)
 
 
-def root_scores(resp: torch.Tensor, model: Model) -> torch.Tensor:
-    """The tree DP over one level's (P*K, Hr, Wr) responses: the best
-    score of a placement at every root cell, (Hr, Wr)."""
-    nparts = len(model.parent)
-    k = model.filters.shape[1]
+def root_scores(resp: torch.Tensor, tree: Tree) -> torch.Tensor:
+    """The tree DP over one level's (P*K, Hr, Wr) responses of one tree's
+    parts, part p's mixture k at p*K + k, part by part: the best score of
+    a placement at every root cell, (Hr, Wr). The plain form of
+    component_root_scores, which tests hold it to."""
+    nparts = len(tree.parent)
+    k = tree.defs.shape[1]
     score = [resp[p * k : (p + 1) * k].clone() for p in range(nparts)]
     for p in range(nparts - 1, 0, -1):
-        par = model.parent[p]
-        msg0 = distance_transform(score[p], model.defs[p], model.anchors[p],
+        par = tree.parent[p]
+        msg0 = distance_transform(score[p], tree.defs[p], tree.anchors[p],
                                   *score[par].shape[1:])
         # (L, K, H, W): parent mixture l takes its best child mixture
-        msg = (msg0[None] + model.bias[p].to(F64)[:, :, None, None]).amax(dim=1)
+        msg = (msg0[None] + tree.bias[p].to(F64)[:, :, None, None]).amax(dim=1)
         score[par] = score[par] + msg
-    rootsc = score[0] + model.bias[0].to(F64)[0][:, None, None]
+    rootsc = score[0] + tree.bias[0].to(F64)[0][:, None, None]
     return rootsc.amax(dim=0)
+
+
+def component_root_scores(resp: torch.Tensor, model: Model) -> torch.Tensor:
+    """Every component's DP over one level's (F, Hr, Wr) pool responses,
+    each on the responses its parts index: (C, Hr, Wr). root_scores' terms
+    in its order, over the parts of every tree at once: the nodes of one
+    depth, deepest first, go through the distance transform together (in
+    calls of DT_MAPS maps), and each parent adds its children's messages
+    in descending part order, so that each component's map is the one
+    root_scores gives on that component alone, to the bit."""
+    fo = model.forest
+    k = fo.defs.shape[1]
+    h, w = resp.shape[1:]
+    score = resp[fo.filterid.reshape(-1)].reshape(-1, k, h, w)
+    for nodes, rounds in fo.steps:
+        src = score[nodes].reshape(-1, h, w)
+        defs = fo.defs[nodes].reshape(-1, 4)
+        shift = fo.anchors[nodes].reshape(-1, 2)
+        msg0 = torch.cat([distance_transform(src[i : i + DT_MAPS], defs[i : i + DT_MAPS],
+                                             shift[i : i + DT_MAPS], h, w)
+                          for i in range(0, src.shape[0], DT_MAPS)]).reshape(-1, k, h, w)
+        # (n, L, K, H, W): parent mixture l takes its best child mixture
+        msg = (msg0[:, None] + fo.bias[nodes].to(F64)[..., None, None]).amax(dim=2)
+        for rows, parents in rounds:
+            score[parents] = score[parents] + msg[rows]
+    rootsc = score[fo.roots] + fo.bias[fo.roots, 0].to(F64)[..., None, None]
+    return rootsc.amax(dim=1)
 
 
 @dataclasses.dataclass
 class Detection:
     """One frame's reference. Per level: the box scale, and, flattened
-    into one tensor each, the responses (P*K, Hr, Wr) and the root
-    scores (Hr, Wr), with each level's offsets and (Hr, Wr); and the
-    scores of every root cell at or above the threshold, best first."""
+    into one tensor each, the pool's responses (F, Hr, Wr) and every
+    component's root scores (C, Hr, Wr), with each level's offsets and
+    (Hr, Wr); and the scores of every (component, root cell) at or above
+    the threshold, best first."""
 
     scales: List[float]
     resp: torch.Tensor
@@ -329,14 +427,13 @@ def _flat(maps: List[torch.Tensor]):
 
 
 def detect(frame: torch.Tensor, model: Model) -> Detection:
-    flat = model.filters.reshape(-1, *model.filters.shape[2:])
     feats, scales = pyramid(frame, model)
     resp, root = [], []
     for f in feats:
-        r = responses(f, flat)
+        r = responses(f, model.filters)
         resp.append(r)
-        root.append(root_scores(r, model))
-    grid = torch.tensor([r.shape for r in root], device=frame.device)
+        root.append(component_root_scores(r, model))
+    grid = torch.tensor([r.shape[1:] for r in root], device=frame.device)
     resp, resp_off = _flat(resp)
     root, root_off = _flat(root)
     kept = root[root >= model.thresh]
@@ -354,47 +451,51 @@ def _gather(flat, off, grid, level, planes, ys, xs):
     return torch.where(inside, val, torch.full_like(val, -math.inf))
 
 
-def placement_score(det: Detection, model: Model, level: torch.Tensor, xs: torch.Tensor,
-                    ys: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
-    """The score of N placements by the DP's terms: every part's
-    response at its cell and mixture, less its deformation from its
-    parent's cell, plus the bias of its (parent mixture, mixture) and the
-    root's bias. level (N,), xs, ys, mix (N, P) int64 on each
+def placement_score(det: Detection, model: Model, c: int, level: torch.Tensor,
+                    xs: torch.Tensor, ys: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """The score of N placements of component c by the DP's terms: every
+    part's response at its cell and mixture, less its deformation from
+    its parent's cell, plus the bias of its (parent mixture, mixture) and
+    the root's bias. level (N,), xs, ys, mix (N, P_c) int64 on each
     placement's level grid. Cells outside the grid score -inf."""
-    k = model.filters.shape[1]
+    tree = model.trees[c]
     nparts = xs.shape[1]
     dev = xs.device
-    planes = torch.arange(nparts, device=dev) * k + mix
+    planes = tree.filterid.to(dev)[torch.arange(nparts, device=dev)[None, :], mix]
     total = _gather(det.resp, det.resp_off, det.grid, level, planes, ys, xs).sum(1)
-    bias = model.bias.to(F64)
+    bias = tree.bias.to(F64)
     total = total + bias[0, 0][mix[:, 0]]
-    par = torch.tensor(model.parent[1:], device=dev)
+    par = torch.tensor(tree.parent[1:], device=dev)
     ch = torch.arange(1, nparts, device=dev)[None, :]
     m = mix[:, 1:]
-    a = model.anchors[ch, m]
+    a = tree.anchors[ch, m]
     dx = (a[..., 0] + xs[:, par] - xs[:, 1:]).to(F64)
     dy = (a[..., 1] + ys[:, par] - ys[:, 1:]).to(F64)
-    ax, bx, ay, by = model.defs[ch, m].to(F64).unbind(-1)
+    ax, bx, ay, by = tree.defs[ch, m].to(F64).unbind(-1)
     total = total - (ax * dx * dx + bx * dx + ay * dy * dy + by * dy).sum(1)
     return total + bias[ch, mix[:, par], m].sum(1)
 
 
-def root_score_at(det: Detection, level: torch.Tensor, x: torch.Tensor,
+def root_score_at(det: Detection, c: int, level: torch.Tensor, x: torch.Tensor,
                   y: torch.Tensor) -> torch.Tensor:
-    """The reference's best score at root cells (x, y) of their levels;
-    -inf outside the grid."""
-    zero = torch.zeros_like(x)
-    return _gather(det.root, det.root_off, det.grid, level, zero[:, None], y[:, None],
+    """The reference's best score of component c at root cells (x, y) of
+    their levels; -inf outside the grid."""
+    plane = torch.full_like(x, c)
+    return _gather(det.root, det.root_off, det.grid, level, plane[:, None], y[:, None],
                    x[:, None])[:, 0]
 
 
-def model_from_arrays(arrays: Dict[str, torch.Tensor], interval: int, sbin: int,
+def model_from_arrays(arrays: Dict[str, object], interval: int, sbin: int,
                       thresh: float) -> Model:
     """The Model of the benchmark's generated arrays (lib/inputs.py)."""
-    parent = [int(p) for p in arrays["parent"].tolist()]
-    for p, q in enumerate(parent[1:], start=1):
-        if not 0 <= q < p:
-            raise ValueError(f"part {p}: parent {q} must come before it")
-    return Model(parent=parent, filters=arrays["filters"], defs=arrays["defs"],
-                 anchors=arrays["anchors"].to(torch.int64), bias=arrays["bias"],
-                 interval=int(interval), sbin=int(sbin), thresh=float(thresh))
+    trees = []
+    for c, t in enumerate(arrays["trees"]):
+        parent = [int(p) for p in t["parent"].tolist()]
+        for p, q in enumerate(parent[1:], start=1):
+            if not 0 <= q < p:
+                raise ValueError(f"component {c}, part {p}: parent {q} must come before it")
+        trees.append(Tree(parent=parent, filterid=t["filterid"].to(torch.int64),
+                          defs=t["defs"], anchors=t["anchors"].to(torch.int64),
+                          bias=t["bias"]))
+    return Model(filters=arrays["filters"], trees=trees, interval=int(interval),
+                 sbin=int(sbin), thresh=float(thresh))

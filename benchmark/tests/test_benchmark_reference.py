@@ -1,7 +1,9 @@
 """The plain reference (benchmark/reference/pbd_tree.py) against the
 NumPy loop semantics of the reference code (the port's frozen copy of
-ops/reference.py, used here as an independent oracle), and the program's
-CPU path against the reference through a whole run of each cell."""
+ops/reference.py, used here as an independent oracle), its DP of each
+component of a several-tree model against the one-tree DP on that
+component alone, and the program's CPU path against the reference
+through a whole run of each cell."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.lib import inputs, spec
 from benchmark.reference import pbd_tree as ref
 from benchmark.tests import _small
 from partsbaseddetector_tpu_torch.ops import reference as loops
@@ -43,6 +46,37 @@ def test_distance_transform_equals_the_envelope_scan():
     for k in range(2):
         want, _, _ = loops.shift_dt_2d(src[k], defs[k], shift[k, 0], shift[k, 1], 10, 7)
         np.testing.assert_allclose(got[k], want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("config", ["person26", "trees3"])
+def test_each_components_dp_is_the_one_tree_dp_on_it_alone(config):
+    """Every component's root scores of each level, from the pool's
+    responses, are the bits of root_scores on that component alone (its
+    tree over the responses its parts index, in part order); detections
+    are every component's cells at or above the threshold, best first."""
+    torch.set_num_threads(4)
+    cfg = _small.trees3_config() if config == "trees3" else spec.load().config("person26")
+    cfg = {**cfg, "frame_h": 48, "frame_w": 64}
+    g = inputs.generator(2**31 + 5, "cpu")
+    model = ref.model_from_arrays(inputs.model_arrays(cfg, g, "cpu"), cfg["interval"],
+                                  cfg["sbin"], cfg["thresh"])
+    frame = torch.as_tensor(inputs.frames(cfg, 1, g, "cpu")[0])
+    det = ref.detect(frame, model)
+    feats, _ = ref.pyramid(frame, model)
+    ntrees = len(model.trees)
+    kept = []
+    for level, f in enumerate(feats):
+        resp = ref.responses(f, model.filters)
+        h, w = det.grid[level].tolist()
+        off = int(det.root_off[level])
+        both = det.root[off : off + ntrees * h * w].reshape(ntrees, h, w)
+        for c, tree in enumerate(model.trees):
+            own = torch.arange(tree.filterid.numel()).reshape(tree.filterid.shape)
+            alone = ref.Tree(tree.parent, own, tree.defs, tree.anchors, tree.bias)
+            assert torch.equal(both[c], ref.root_scores(resp[tree.filterid.reshape(-1)], alone))
+        kept.append(both[both >= model.thresh])
+    assert torch.equal(det.scores, torch.cat(kept).sort(descending=True).values)
+    assert det.scores.numel() > 0 and (ntrees == 1 or not torch.equal(both[0], both[1]))
 
 
 @pytest.mark.parametrize("name", ["person26.frame", "person26.batch"])

@@ -2,13 +2,16 @@
 correlation counted at every level's own size, and, as the
 implementation's figure, over the bucket stacks, which reproduces the
 counts PERF.md carried before the benchmark (chip_smoke.py's, from the
-detect's captured bucket stacks) at the shapes they were taken at."""
+detect's captured bucket stacks) at the shapes they were taken at; a
+model of several trees counted by its pool and its trees' parts; and
+person26's figures pinned to those of the one-tree arithmetic."""
 
 from __future__ import annotations
 
 import pytest
 
 from benchmark.lib import spec, work
+from benchmark.tests import _small
 
 
 def _person26(**change):
@@ -18,7 +21,8 @@ def _person26(**change):
 # the shapes of PRs 7-15's counts: 26 parts x 4 mixtures, and a 68-part,
 # 3-mixture model at interval 5 with one bucket per octave
 PR7_PERSON = dict(mixtures=4)
-PR14_FACE68 = dict(parts=68, mixtures=3, interval=5, buckets_per_octave=1)
+PR14_FACE68 = dict(parts=68, mixtures=3, interval=5, buckets_per_octave=1,
+                   parents=[0] + list(range(67)))
 
 
 def test_the_padded_stacks_reproduce_the_kernel_tables_counts():
@@ -59,3 +63,37 @@ def test_model_flops_count_the_exact_pyramid():
     assert conv_exact / 1e9 == pytest.approx(26.10, abs=0.01)
     assert work.model_flops(cfg) > conv_exact
     assert work.F32_PROFILE_FLOPS == 165e12
+
+
+def test_person26s_figures_are_the_one_tree_arithmetics():
+    """The figures of a frame and of a microbatch of 8 as the one-tree
+    arithmetic (parts x mixtures x components) gave them."""
+    cfg = _person26()
+    assert work.n_filters(cfg) == 156 and work.dt_children(cfg) == 150
+    assert work.conv_work(cfg) == (39143520000.0, 120680816.0)
+    assert work.conv_work(cfg, 8) == (313148160000.0, 961952128.0)
+    assert work.conv_work_padded(cfg) == (55224249600.0, 169608400.0)
+    assert work.dt_bytes(cfg) == 658665000.0
+    assert work.dt_bytes(cfg, 8) == 5269320000.0
+    assert work.model_flops(cfg) == 39849232500.0
+    assert work.conv_bound_s(cfg) == 0.00023723345454545455
+    assert work.dt_bound_s(cfg) == 0.00019661641791044777
+    face68 = _person26(**PR14_FACE68)
+    assert work.conv_work(face68) == (27305644800.0, 80785200.0)
+    assert work.model_flops(face68) == 27810096510.0
+    assert work.dt_bytes(face68) == 470821596.0
+
+
+def test_several_trees_count_the_pool_and_every_trees_children():
+    cfg = _small.trees3_config()
+    cells = sum(work.response_cells(cfg))
+    assert work.n_filters(cfg) == 9 and work.dt_children(cfg) == 5 + 5 + 2
+    assert work.conv_work(cfg)[0] == 2.0 * cells * 800 * 9
+    assert work.dt_bytes(cfg) == 28.0 * 12 * cells
+    assert work.model_flops(cfg) == 2.0 * cells * 800 * 9 + 2.0 * 15.0 * cells * 12
+    # Share-146's shape: 7 views of 68 parts and 6 of 39 over 146 filters
+    share = {**cfg, "pool": 146, "trees": [
+        {"parents": [0] + list(range(n - 1)), "filters": [[p % 146] for p in range(n)]}
+        for n in [39] * 3 + [68] * 7 + [39] * 3]}
+    assert work.n_filters(share) == 146
+    assert work.dt_children(share) == 7 * 67 + 6 * 38
