@@ -69,7 +69,7 @@ from .pipeline import (
 from .ops.pyramid import PyramidPlan
 from .types import Candidate, DetectionResult
 from .utils.device import resolve_device
-from .utils.profiling import span, validate_image
+from .utils.profiling import span, tree_work, validate_image
 
 NEG_INF = -math.inf
 # frames per packed readback group (detect_batch, the pipelined path)
@@ -810,6 +810,8 @@ class PartsBasedDetector:
                     (imsize, nimg, self.dtype, self.conv_engine, use_window())
                 ),
             )
+        tree_work["images"] += nimg
+        tree_work["dp_pairs"] += len(scores)
 
         with span("backtrack"):
             # box origin: MATLAB subtracts the virtual padding; the C++ demo
@@ -878,6 +880,8 @@ class PartsBasedDetector:
                 comp_l.append(torch.full(sc.shape, c, dtype=torch.int32, device=dev))
             boxes = torch.cat(boxes_l, dim=1)
             scores_all = torch.cat(scores_l, dim=1)
+            tree_work["walks"] += len(outs)
+            tree_work["tail_rows"] += scores_all.numel()
             mixtures = torch.cat(mix_l, dim=1)
             valid = torch.cat(valid_l, dim=1)
             comps = torch.cat(comp_l, dim=1)

@@ -25,6 +25,8 @@ prints, SURVEY.md §5):
     that a window recorded a kernel event for each;
   - dp_graph_counts(): the inference DP's CUDA-graph captures, replays
     and eager calls;
+  - tree_counts(): the detect path's images, (bucket, tree) DPs, walks
+    and candidate rows, as detector.py's _run adds them up;
   - cuda_ms(), device_ms(): the CUDA-event and profiler timers of the
     tools and chip_smoke.py;
   - validate_image(): input validation for the public detect API.
@@ -410,6 +412,21 @@ def dp_graph_counts() -> Dict[str, int]:
     from ..ops import dp_graph
 
     return dict(dp_graph.counts)
+
+
+# the detect path's work by tree so far: detector.py's _run adds to it
+tree_work: Dict[str, int] = {"images": 0, "dp_pairs": 0, "walks": 0, "tail_rows": 0}
+
+
+def tree_counts() -> Dict[str, int]:
+    """What the detect path's `_run` calls did so far, host integers
+    counted without a device sync: `images`; `dp_pairs`, the (bucket,
+    tree) DPs it scheduled, one `tree_min_sum` each, whether a graph
+    captured, replayed or ran them eagerly; `walks`, its
+    `backtrack_merged` and `backtrack` calls; `tail_rows`, the candidate
+    rows of every image concatenated across trees before the top-k
+    (`select`)."""
+    return dict(tree_work)
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:
