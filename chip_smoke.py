@@ -1465,11 +1465,11 @@ def check_rgbd(torch, np, pbd, dt_cuda, conv_cuda, im, card) -> None:
 
 
 def eager_dp(det) -> None:
-    """Drop det's DP graphs (ops/dp_graph.py), so that its next call of
-    each shape runs the DP eagerly. A replayed graph runs none of the
-    DP's Python: the phases that record the DP's calls from inside it
-    start here."""
-    det._dp_graphs.clear()
+    """Drop det's graphs (ops/dp_graph.py), so that its next call of
+    each shape runs the DP (and the pyramid) eagerly. A replayed graph
+    runs none of the DP's Python: the phases that record the DP's calls
+    from inside it start here."""
+    det._graphs.clear()
 
 
 def capture_transposes(run, dtm, det) -> list:

@@ -24,13 +24,14 @@ runs, on the detector's device, over one frame or a batch of frames:
 and only the final dense candidate tensors come back to the host. The
 per-image-size plan (and the Fourier engine's filter spectra) is built
 once and cached. So are the DP's plans per image size and batch, and on
-the card the DP of every (bucket, component) runs as one CUDA graph,
-captured at the second call of a shape and replayed from the third on
-(ops/dp_graph.py). A captured graph holds its memory pool and a copy of
-the responses as long as it is kept: at person26's VGA about 145 MB for
-one frame and 1.1 GB for a batch of 8 (measured on an H100). So the
-detector keeps the graphs of the DP_GRAPHS_KEPT shapes it used last and
-drops the others.
+the card the pyramid and the DP of every (bucket, component) run as two
+CUDA graphs, captured at the second call of a shape and replayed from
+the third on (ops/dp_graph.py). A captured graph holds its memory pool
+and a copy of its input as long as it is kept: at person26's VGA the
+DP's about 145 MB for one frame and 1.1 GB for a batch of 8, the
+pyramid's 268 MB and 2.03 GB (measured on an H100). So the detector
+keeps the graphs of the DP_GRAPHS_KEPT shapes it used last and drops
+the others.
 
 Serving on the card: frames go up from pinned host memory on a copy
 stream of their own, which the compute stream waits for on an event;
@@ -57,7 +58,7 @@ from .models.model import Model, PackedModel, pack_model, to_device
 from .ops.depth_device import component_tables, depth_keep_mask
 from .ops.distance_transform import use_window
 from .ops.dp import backtrack, backtrack_merged, stable_top_k
-from .ops.dp_graph import DPGraph
+from .ops.dp_graph import ShapeGraphs
 from .ops.nms import part_nms_device
 from .ops.rescore import build_rescore_tables, rescore_from_responses, tables_on
 from .pipeline import (
@@ -74,8 +75,9 @@ from .utils.profiling import span, tree_work, validate_image
 NEG_INF = -math.inf
 # frames per packed readback group (detect_batch, the pipelined path)
 PACK = 8
-# DP graphs kept, one a (image size, batch, DP dtype, conv engine, window
-# DT): the least recently used beyond these are dropped with their pools
+# shapes whose graphs are kept (the pyramid's and the DP's), one a (image
+# size, batch, frame dtype, DP dtype, conv engine, window DT): the least
+# recently used beyond these are dropped with their pools
 DP_GRAPHS_KEPT = 4
 
 
@@ -213,9 +215,10 @@ class PartsBasedDetector:
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
         self._spectra: Dict[Tuple[int, int], List[torch.Tensor]] = {}
         self._rtables: Dict[Tuple[int, int], object] = {}
-        # the DP's plans and CUDA graph per (image size, batch, DP dtype,
-        # conv engine, window DT), least recently used first: ops/dp_graph.py
-        self._dp_graphs: Dict[tuple, DPGraph] = {}
+        # the pyramid's and the DP's CUDA graphs (and the DP's plans) per
+        # (image size, batch, frame dtype, DP dtype, conv engine, window
+        # DT), least recently used first: ops/dp_graph.py
+        self._graphs: Dict[tuple, ShapeGraphs] = {}
         # uploads run on a stream of their own (the card only)
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -237,7 +240,7 @@ class PartsBasedDetector:
         self._plans.clear()
         self._spectra.clear()
         self._rtables.clear()
-        self._dp_graphs.clear()
+        self._graphs.clear()
 
     @property
     def name(self) -> str:
@@ -735,15 +738,15 @@ class PartsBasedDetector:
             )
         return self._plans[key]
 
-    def _dp_graph(self, key: tuple) -> DPGraph:
-        """The DP graph of key, now the most recently used; the least
+    def _shape_graphs(self, key: tuple) -> ShapeGraphs:
+        """The graphs of key, now the most recently used; the least
         recently used beyond DP_GRAPHS_KEPT go, and with them their
         graphs' memory."""
-        graph = self._dp_graphs.pop(key, None) or DPGraph()
-        self._dp_graphs[key] = graph
-        while len(self._dp_graphs) > DP_GRAPHS_KEPT:
-            del self._dp_graphs[next(iter(self._dp_graphs))]
-        return graph
+        graphs = self._graphs.pop(key, None) or ShapeGraphs()
+        self._graphs[key] = graphs
+        while len(self._graphs) > DP_GRAPHS_KEPT:
+            del self._graphs[next(iter(self._graphs))]
+        return graphs
 
     def _rescore_tables(self, imsize: Tuple[int, int]):
         """The re-score's tables for one image size, on the device."""
@@ -793,7 +796,10 @@ class PartsBasedDetector:
         # self.dtype, and the f32 re-score gathers one response scalar
         # per (candidate, part) from the raw f32 responses
         resps32: Optional[List[torch.Tensor]] = [] if rerank else None
-        # the DP's graph engages only where autograd records nothing; its
+        graphs = self._shape_graphs(
+            (imsize, nimg, ims.dtype, self.dtype, self.conv_engine, use_window())
+        )
+        # the graphs engage only where autograd records nothing; their
         # outputs are consumed below, on this stream, before the next replay
         with torch.no_grad():
             scores = root_scores(
@@ -806,9 +812,8 @@ class PartsBasedDetector:
                 dtype=self.dtype,
                 collect_responses=resps32,
                 conv_dtype=self.wire_dtype,
-                dp_graph=self._dp_graph(
-                    (imsize, nimg, self.dtype, self.conv_engine, use_window())
-                ),
+                dp_graph=graphs.dp,
+                pyramid_graph=graphs.pyramid,
             )
         tree_work["images"] += nimg
         tree_work["dp_pairs"] += len(scores)

@@ -69,12 +69,12 @@ def _orientation_units() -> np.ndarray:
     return np.stack([reference.HOG_UU, reference.HOG_VV]).astype(np.float32)
 
 
-def hog_choices(im: torch.Tensor, sbin: int):
+def hog_choices(im: torch.Tensor, sbin: int, consts=None):
     """The discrete choices of the HOG of (B, H, W, 3) f32 images, per
     pixel of the visible grid's interior, (B, vh-2, vw-2) each: the
     colour channel with the strongest gradient (first of R, G, B at a
     tie), the snapped orientation in [0, 18), and the chosen gradient's
-    squared magnitude."""
+    squared magnitude. consts: as in ops/resize.py::held."""
     _, h, w, _ = im.shape
     vh, vw = cround(h / sbin) * sbin, cround(w / sbin) * sbin
     dev = im.device
@@ -97,7 +97,8 @@ def hog_choices(im: torch.Tensor, sbin: int):
     # --- orientation snapping: interleave (dot_o, -dot_o) so argmax's
     # first-max rule reproduces the reference's comparison order
     # in the image's dtype, as the JAX package's (bf16 dots for bf16)
-    units = device_constant(_orientation_units, device=dev).to(im.dtype)
+    units = device_constant(_orientation_units, device=dev, consts=consts)
+    units = units.to(im.dtype)
     dots = gdx[..., None] * units[0] + gdy[..., None] * units[1]  # (.., 9)
     inter = torch.stack([dots, -dots], dim=-1).reshape(*dots.shape[:-1], 18)
     idx = torch.argmax(inter, dim=-1)
@@ -133,18 +134,18 @@ def rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return inv.to(x.dtype)
 
 
-def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
+def hog_features(im: torch.Tensor, sbin: int, consts=None) -> torch.Tensor:
     """HOG of (B, H, W, 3) f32 images -> (B, bh-2, bw-2, 32) features.
     No operation's rounding depends on B (the tent maps are fixed-order
     elementwise sums, ops/resize.py), so an image computes exactly as it
-    does alone."""
+    does alone. consts: as in ops/resize.py::held."""
     nb, h, w, _ = im.shape
     bh = cround(h / sbin)
     bw = cround(w / sbin)
     oh, ow = max(bh - 2, 0), max(bw - 2, 0)
     vh, vw = bh * sbin, bw * sbin
     dev, dtype = im.device, im.dtype
-    _, best_o, gv = hog_choices(im, sbin)
+    _, best_o, gv = hog_choices(im, sbin, consts)
 
     mag = sqrt_f32(gv)
     onehot = F.one_hot(best_o, NORIENT).to(dtype) * mag[..., None]
@@ -153,8 +154,8 @@ def hog_features(im: torch.Tensor, sbin: int) -> torch.Tensor:
     # (border pixels contribute nothing), cells aggregated by two
     # separable strided tent maps, each a fixed sum of its 2*sbin taps
     onehot = F.pad(onehot, (0, 0, 1, 1, 1, 1))  # -> (B, vh, vw, 18)
-    tmp = apply_banded(onehot, 1, _hist_matrix, bh, vh, sbin)
-    hist = apply_banded(tmp, 2, _hist_matrix, bw, vw, sbin)  # (B, bh, bw, 18)
+    tmp = apply_banded(onehot, 1, _hist_matrix, bh, vh, sbin, consts=consts)
+    hist = apply_banded(tmp, 2, _hist_matrix, bw, vw, sbin, consts=consts)  # (B, bh, bw, 18)
 
     # --- block energy and 2x2 neighborhood sums
     half = NORIENT // 2

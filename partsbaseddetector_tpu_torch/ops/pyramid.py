@@ -162,28 +162,30 @@ def _pad_feature(
 
 
 def _scale_images(
-    im: torch.Tensor, plan: PyramidPlan, spec: ModelSpec
+    im: torch.Tensor, plan: PyramidPlan, spec: ModelSpec, consts=None
 ) -> List[torch.Tensor]:
     sc = 2.0 ** (1.0 / spec.interval)
     images: List[torch.Tensor] = [None] * plan.nscales
     for i in range(min(spec.interval, plan.nscales)):
-        scaled = resize_image(im, 1.0 / (sc**i)) if i > 0 else im
+        scaled = resize_image(im, 1.0 / (sc**i), consts) if i > 0 else im
         images[i] = scaled
         j = i + spec.interval
         while j < plan.nscales:
-            scaled = reduce_image(scaled)
+            scaled = reduce_image(scaled, consts)
             images[j] = scaled
             j += spec.interval
     return images
 
 
 def build_pyramid_features(
-    im: torch.Tensor, plan: PyramidPlan, spec: ModelSpec
+    im: torch.Tensor, plan: PyramidPlan, spec: ModelSpec, consts=None
 ) -> List[torch.Tensor]:
     """HOG features for every scale, returned as one padded
-    (B, S_b, H_b, W_b, flen) stack per bucket. im: (B, H, W, 3) f32."""
-    images = _scale_images(im, plan, spec)
-    feats = [hog_features(images[s], spec.sbin) for s in range(plan.nscales)]
+    (B, S_b, H_b, W_b, flen) stack per bucket. im: (B, H, W, 3) f32.
+    consts (optional): a dict that keeps every device constant the
+    pyramid reads (ops/resize.py::held), as a captured graph needs."""
+    images = _scale_images(im, plan, spec, consts)
+    feats = [hog_features(images[s], spec.sbin, consts) for s in range(plan.nscales)]
     return [
         torch.stack(
             [_pad_feature(feats[s], spec, bucket) for s in bucket.scale_indices],

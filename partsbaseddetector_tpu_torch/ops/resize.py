@@ -25,6 +25,12 @@ matrix products instead: weights rounded to bf16, each pass's taps
 multiplied and summed in f32 and the pass rounded to bf16. `tree_sum`
 likewise sums bf16 in f32 and rounds once. Both stay elementwise and
 fixed-order, so bf16 features are batch-invariant too.
+
+The device copies of the taps (and of `ops/hog.py`'s constants) live in
+bounded caches. A caller may pass `consts`, a dict of its own that
+keeps every one it reads (`held`): a captured CUDA graph reads them
+long after the call, whatever the caches have dropped since
+(`ops/dp_graph.py::PyramidGraph`).
 """
 
 from __future__ import annotations
@@ -52,11 +58,24 @@ def reduce_matrix(src_len: int) -> np.ndarray:
     return reference.reduce_weights(src_len)
 
 
-def device_constant(fn, *key, device) -> torch.Tensor:
+def held(consts, key: tuple, make):
+    """make(), kept in the dict `consts` under key when a caller passes
+    one (and taken from it from then on); without one, make() alone."""
+    if consts is None:
+        return make()
+    if key not in consts:
+        consts[key] = make()
+    return consts[key]
+
+
+def device_constant(fn, *key, device, consts=None) -> torch.Tensor:
     """The host matrix fn(*key) as a tensor on `device`, cached so that
     each detect call does not copy the same weights to the card again.
-    Bounded: one image size needs a few dozen matrices."""
-    return _device_constant(fn, key, torch.device(device))
+    Bounded: one image size needs a few dozen matrices. With `consts`,
+    kept there too (`held`)."""
+    device = torch.device(device)
+    return held(consts, (fn, key, device),
+                lambda: _device_constant(fn, key, device))
 
 
 @functools.lru_cache(maxsize=512)
@@ -82,12 +101,14 @@ def banded(fn, *key) -> tuple:
     return idx, wt
 
 
-def apply_banded(x: torch.Tensor, dim: int, fn, *key) -> torch.Tensor:
+def apply_banded(x: torch.Tensor, dim: int, fn, *key, consts=None) -> torch.Tensor:
     """out.select(dim, d) = sum_t wt[d, t] * x.select(dim, idx[d, t]) for
     the taps of banded(fn, *key): one gather, one multiply and log2(T)
     adds of halves, in x's dtype. Every operation is elementwise, so the
-    result does not depend on the other dimensions' sizes or the device."""
-    idx, wt = _device_taps(fn, key, x.dtype, x.device)
+    result does not depend on the other dimensions' sizes or the device.
+    With `consts`, the taps' device copies are kept there too (`held`)."""
+    idx, wt = held(consts, (fn, key, x.dtype, x.device),
+                   lambda: _device_taps(fn, key, x.dtype, x.device))
     dst, taps = wt.shape
     dim = dim % x.dim()
     shape = list(x.shape)
@@ -128,24 +149,26 @@ def _device_taps(fn, key: tuple, dtype: torch.dtype, device: torch.device):
             torch.as_tensor(wt, device=device).to(dtype))
 
 
-def _apply_separable(im: torch.Tensor, fn, hkey: tuple, wkey: tuple) -> torch.Tensor:
+def _apply_separable(im: torch.Tensor, fn, hkey: tuple, wkey: tuple,
+                     consts=None) -> torch.Tensor:
     """(B, H, W, C) -> (B, dh, dw, C): the row map then the column map.
     f32 images: both in float64, rounded to f32 once. bf16 images: each
     pass as the JAX package's bf16 matrix product (apply_banded)."""
     if im.dtype == torch.bfloat16:
-        return apply_banded(apply_banded(im, 1, fn, *hkey), 2, fn, *wkey)
-    out = apply_banded(im.to(torch.float64), 1, fn, *hkey)
-    return apply_banded(out, 2, fn, *wkey).to(im.dtype)
+        rows = apply_banded(im, 1, fn, *hkey, consts=consts)
+        return apply_banded(rows, 2, fn, *wkey, consts=consts)
+    out = apply_banded(im.to(torch.float64), 1, fn, *hkey, consts=consts)
+    return apply_banded(out, 2, fn, *wkey, consts=consts).to(im.dtype)
 
 
-def resize_image(im: torch.Tensor, scale: float) -> torch.Tensor:
+def resize_image(im: torch.Tensor, scale: float, consts=None) -> torch.Tensor:
     """Resize (B, H, W, C) f32 or bf16 images by a scale factor <= 1."""
     h, w = im.shape[1:3]
     dh, dw = cround(h * scale), cround(w * scale)
-    return _apply_separable(im, resize_matrix, (h, dh), (w, dw))
+    return _apply_separable(im, resize_matrix, (h, dh), (w, dw), consts)
 
 
-def reduce_image(im: torch.Tensor) -> torch.Tensor:
+def reduce_image(im: torch.Tensor, consts=None) -> torch.Tensor:
     """Half-size binomial reduce of (B, H, W, C) f32 or bf16 images."""
     h, w = im.shape[1:3]
-    return _apply_separable(im, reduce_matrix, (h,), (w,))
+    return _apply_separable(im, reduce_matrix, (h,), (w,), consts)

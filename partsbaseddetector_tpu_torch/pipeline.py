@@ -43,7 +43,7 @@ from .ops.conv import (
 )
 from .ops.conv_cuda import filter_responses_grouped
 from .ops.dp import dp_plan, tree_min_sum
-from .ops.dp_graph import DPGraph, graphable
+from .ops.dp_graph import DPGraph, PyramidGraph, graphable
 from .ops.pyramid import (
     PyramidPlan,
     build_plan,
@@ -146,6 +146,7 @@ def root_scores(
     conv_dtype=torch.float32,
     conv=None,
     dp_graph: Optional[DPGraph] = None,
+    pyramid_graph: Optional[PyramidGraph] = None,
 ) -> List[BucketScores]:
     """Run HOG pyramid -> responses -> tree DP for every (bucket,
     component). im: one (H, W, 3) frame or a (B, H, W, 3) batch on
@@ -194,7 +195,12 @@ def root_scores(
     CUDA graph that replays every pair's DP at once, under one `dp`
     span. The BucketScores then hold the graph's tensors, which its next
     replay overwrites: the caller consumes them on the same stream first.
-    Elsewhere the DP runs eagerly, a `dp` span a pair."""
+    Elsewhere the DP runs eagerly, a `dp` span a pair.
+    pyramid_graph (optional; the detector's, of the same shape): under
+    the same gate, for the frames, the CUDA graph that replays the cast
+    to conv_dtype and the whole pyramid under the `pyramid` span; its
+    feature stacks are the graph's, consumed by the conv before the next
+    replay. Elsewhere the pyramid runs eagerly."""
     if engine not in ("spatial", "fourier"):
         raise ValueError(f"unknown conv engine: {engine}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -221,8 +227,17 @@ def root_scores(
     if single:
         im = im[None]
     nimg = im.shape[0]
+    # the gate reads autograd's state, so before the pyramid's no_grad
+    graphed = pyramid_graph is not None and graphable([im], params is not None)
     with torch.no_grad(), span("pyramid"):
-        feats = build_pyramid_features(im.to(conv_dtype), plan, spec)
+        if graphed:
+            feats = pyramid_graph.run([im], lambda ims: build_pyramid_features(
+                ims[0].to(conv_dtype), plan, spec, pyramid_graph.consts
+            ))
+        else:
+            if pyramid_graph is not None:
+                pyramid_graph.note_eager()
+            feats = build_pyramid_features(im.to(conv_dtype), plan, spec)
     if engine == "fourier" and params is None and fft_spectra is None:
         fft_spectra = [
             torch.as_tensor(sp, device=im.device)

@@ -23,8 +23,8 @@ prints, SURVEY.md §5):
     profiler window every reading here takes, the hand kernels'
     launches by family as their wrappers count them, and the check
     that a window recorded a kernel event for each;
-  - dp_graph_counts(): the inference DP's CUDA-graph captures, replays
-    and eager calls;
+  - dp_graph_counts(), pyramid_graph_counts(): the inference DP's and
+    pyramid's CUDA-graph captures, replays and eager calls;
   - tree_counts(): the detect path's images, (bucket, tree) DPs, walks
     and candidate rows, as detector.py's _run adds them up;
   - cuda_ms(), device_ms(): the CUDA-event and profiler timers of the
@@ -412,6 +412,17 @@ def dp_graph_counts() -> Dict[str, int]:
     from ..ops import dp_graph
 
     return dict(dp_graph.counts)
+
+
+def pyramid_graph_counts() -> Dict[str, int]:
+    """The inference pyramid's calls so far by how they ran
+    (ops/dp_graph.py::PyramidGraph), as dp_graph_counts() counts the
+    DP's: `captures`, `replays` and `eager` (a shape's first call, and
+    every call with a graph that it does not engage for). The graph's
+    hit share is replays over the three."""
+    from ..ops import dp_graph
+
+    return dict(dp_graph.pyramid_counts)
 
 
 # the detect path's work by tree so far: detector.py's _run adds to it

@@ -127,7 +127,7 @@ def test_distribute_model_drops_the_graph(cuda, monkeypatch):
         det.detect(im)
     other = make_person_like_model(seed=1)
     det.distribute_model(other)
-    assert det._dp_graphs == {}
+    assert det._graphs == {}
     before = dp_graph_counts()
     got = [det.detect(im) for _ in range(3)]
     counted = dp_graph_counts()

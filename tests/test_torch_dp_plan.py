@@ -11,7 +11,8 @@ function, a replay that runs it again into the same tensors) the
 detector's state machine runs here: a shape's first call eager, its
 second captured, then replays, frames that differ in turn each with
 their own answer; the detector keeps the graphs of the shapes it used
-last and drops the others; a capture leaves the launch counters as they
+last and drops the others, a shape's pyramid graph with its DP graph; a
+capture leaves the launch counters as they
 were and a replay adds exactly what the capture counted.
 """
 
@@ -26,7 +27,7 @@ from partsbaseddetector_tpu_torch.ops import dp as tdp
 from partsbaseddetector_tpu_torch.ops import dp_graph, dt_cuda, transpose_cuda
 from partsbaseddetector_tpu_torch.train.sgd import model_params
 from partsbaseddetector_tpu_torch.ops.pyramid import mask_responses, response_valid_extents
-from partsbaseddetector_tpu_torch.utils import dp_graph_counts
+from partsbaseddetector_tpu_torch.utils import dp_graph_counts, pyramid_graph_counts
 from partsbaseddetector_tpu_torch.utils.profiling import launch_counts
 
 
@@ -123,6 +124,18 @@ def test_the_gate_takes_cuda_maps_without_weights_or_autograd(monkeypatch):
     assert not dp_graph.graphable(resps, False)  # autograd on
 
 
+def _leaves(obj):
+    """The tensors of a nested result of lists, tuples and dicts, in order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _leaves(v)
+    else:
+        for v in obj:
+            yield from _leaves(v)
+
+
 class _Rerun:
     """A stand-in CUDA graph: the capture runs fn, and a replay runs it
     again and writes its results into the captured ones."""
@@ -134,12 +147,8 @@ class _Rerun:
 
     def replay(self):
         self.replays += 1
-        new = self.fn()
-        for (v, i, t), (nv, ni, nt) in zip(self.out, new):
-            v.copy_(nv)
-            i.copy_(ni)
-            for p in t:
-                t[p].copy_(nt[p])
+        for dst, src in zip(_leaves(self.out), _leaves(self.fn())):
+            dst.copy_(src)
 
 
 def _rerun_capture(fn, device):
@@ -147,8 +156,8 @@ def _rerun_capture(fn, device):
     return g, g.out
 
 
-def _delta(before):
-    return {k: v - before[k] for k, v in dp_graph_counts().items()}
+def _delta(before, counts=dp_graph_counts):
+    return {k: v - before[k] for k, v in counts().items()}
 
 
 def test_root_scores_keeps_the_dp_eager_off_the_gate_and_counts_it():
@@ -190,11 +199,12 @@ def test_a_shape_runs_eager_then_captured_then_replayed(monkeypatch):
             assert g.score == w.score and g.component == w.component
             np.testing.assert_array_equal(g.parts, w.parts)
     assert _delta(before) == {"eager": 1, "captures": 1, "replays": 3}
-    (graph,) = det._dp_graphs.values()
-    assert graph._graph.replays == 4  # the capture's own replay, then three
-    assert list(det._dp_graphs) == [((64, 80), 1, torch.float32, "spatial", False)]
+    (graphs,) = det._graphs.values()
+    assert graphs.dp._graph.replays == 4  # the capture's own replay, then three
+    assert list(det._graphs) == [
+        ((64, 80), 1, torch.uint8, torch.float32, "spatial", False)]
     det.distribute_model(model)
-    assert det._dp_graphs == {}
+    assert det._graphs == {}
 
 
 def test_the_detector_keeps_the_graphs_of_the_shapes_it_used_last(monkeypatch):
@@ -206,17 +216,19 @@ def test_the_detector_keeps_the_graphs_of_the_shapes_it_used_last(monkeypatch):
     rng = np.random.RandomState(2)
     sizes = {"a": (64, 80), "b": (72, 88), "c": (80, 96)}
     frames = {k: (rng.rand(*hw, 3) * 255).astype(np.uint8) for k, hw in sizes.items()}
-    before = dp_graph_counts()
+    before, pyr_before = dp_graph_counts(), pyramid_graph_counts()
     # a is captured at its second call; c drops b, b drops a, so a and b
     # start eager again
     for k in "abacba":
         assert len(det.detect(frames[k])) > 0
     assert _delta(before) == {"eager": 5, "captures": 1, "replays": 0}
-    assert [key[0] for key in det._dp_graphs] == [sizes["b"], sizes["a"]]
+    assert [key[0] for key in det._graphs] == [sizes["b"], sizes["a"]]
     det.detect(frames["b"])  # b used last: it stays, a goes when c comes
     det.detect(frames["c"])
-    assert [key[0] for key in det._dp_graphs] == [sizes["b"], sizes["c"]]
+    assert [key[0] for key in det._graphs] == [sizes["b"], sizes["c"]]
     assert _delta(before) == {"eager": 6, "captures": 2, "replays": 0}
+    # a shape's pyramid graph goes and comes back with its DP graph
+    assert _delta(pyr_before, pyramid_graph_counts) == _delta(before)
 
 
 class _Inert:
