@@ -71,7 +71,7 @@ CACHE = Path(__file__).resolve().parent.parent / "build" / "bench_cpu_baseline.j
 # the models by role; tests swap in small ones
 MODELS = {"person26": make_person_like_model, "face": make_face_like_model}
 COMPACT_BYTES = 200
-PARITY_SCORE_TOL = 5e-3  # Fourier against spatial (chip_smoke.py's fourier phase)
+PARITY_SCORE_TOL = 5e-3  # Fourier against spatial (the card test of the Fourier profile)
 CPU_BASELINE = "the port's CPUPartsBasedDetector (native C++), this host"
 
 

@@ -31,11 +31,8 @@ import ctypes
 import torch
 
 from .. import kernels
+from ..utils.profiling import hand_launches
 from .conv import filter_responses, split_tf32
-
-# launches of the CUDA kernel by filter_responses_grouped (and so by
-# filter_responses_infer)
-launches = 0
 
 
 def split_bank(weights: torch.Tensor) -> torch.Tensor:
@@ -71,7 +68,6 @@ def _check(features: torch.Tensor, filters: torch.Tensor, lib) -> None:
 
 
 def _grouped_cuda(features: list, filters: torch.Tensor, bank) -> list:
-    global launches
     f, fh, fw, c = filters.shape
     lib = kernels.library()
     for feat in features:
@@ -98,7 +94,7 @@ def _grouped_cuda(features: list, filters: torch.Tensor, bank) -> list:
                 torch.cuda.current_stream(filters.device).cuda_stream,
             )
         kernels.check(rc, "conv kernel launch")
-        launches += 1
+        hand_launches["conv"] += 1
         outs += out
     return outs
 

@@ -26,16 +26,13 @@ import contextlib
 import torch
 
 from .. import kernels
+from ..utils.profiling import hand_launches
 
 # T1's fixed shapes (tools/conv_pallas_proto.py:30)
 C, FH, FW = 32, 5, 5
 # w2's columns are padded to a multiple of TILE_F, as the tool pads them
 # (the kernel reads only the first F)
 TILE_F = 64
-
-# launches of the CUDA kernel by conv_proto (the plain version does not
-# count)
-launches = 0
 
 
 def weights_k_major(filt) -> torch.Tensor:
@@ -102,7 +99,6 @@ def _check(feat_t, w2, f, toh, fh, fw):
 
 
 def _conv_proto_cuda(feat_t, w2, f, toh, fh, fw):
-    global launches
     s, h, c, w = feat_t.shape
     fp = w2.shape[1]
     lib = kernels.library()
@@ -128,7 +124,7 @@ def _conv_proto_cuda(feat_t, w2, f, toh, fh, fw):
             torch.cuda.current_stream(feat_t.device).cuda_stream,
         )
     kernels.check(rc, "conv_proto kernel launch")
-    launches += 1
+    hand_launches["conv"] += 1  # a conv3xtf32 kernel, as K2
     return out
 
 

@@ -18,7 +18,8 @@ copy nothing from the host), captures it the second time and replays it
 from then on. A replay copies the inputs into the graph's input buffers
 first; the results live in the graph's memory pool and are overwritten
 by the next replay, so a caller consumes them on the same stream before
-it replays again. Each use counts its calls in a dict of its own.
+it replays again. Each use counts its calls in a dict of its own
+(utils/profiling.py's `dp_graph_calls`, `pyramid_graph_calls`).
 
 `DPGraph` owns the DP's graph and the DP plans (`ops/dp.py::dp_plan`) of
 its shape; its input is the masked responses. `PyramidGraph` owns the
@@ -33,11 +34,12 @@ A graph engages only where `graphable` holds: tensors on CUDA, no
 trainable weights and no autograd recording. Every other call runs
 eagerly and counts as `eager`.
 
-The DT and transpose wrappers count their launches (`launch_counts`);
-during a capture their calls launch nothing, so the DP's capture takes
-its counts back off and adds them again at each replay, and the
-counters equal the kernels the card ran. The pyramid runs no hand
-kernel.
+The hand kernels' wrappers count their launches in the launch registry
+(`utils/profiling.py::hand_launches`); during a capture their calls
+launch nothing, and a replay launches without them. So every
+`ShapeGraph` takes the whole registry's counts of its capture back off
+and adds them again at each replay, and the registry equals the kernels
+the card ran, whichever hand kernels a graph holds.
 """
 
 from __future__ import annotations
@@ -46,29 +48,9 @@ from typing import Callable, Dict, List
 
 import torch
 
-from . import dt_cuda, transpose_cuda
-
-# DP calls by how they ran: captured (and replayed once), replayed, or
-# eager (a shape's first call, or a call the graph does not engage for)
-counts: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
-# the same for the pyramid
-pyramid_counts: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
-
-# the launch counters, as launch_counts() reads them, of the hand kernels
-# an inference DP runs: K1 (y and x passes), K5 and T2
-_COUNTERS = (
-    (dt_cuda, "launches"), (dt_cuda, "aux_launches"),
-    (dt_cuda, "window_launches"), (transpose_cuda, "launches"),
+from ..utils.profiling import (
+    add_launches, dp_graph_calls, launch_counts, launches_since, pyramid_graph_calls,
 )
-
-
-def _read_counters() -> List[int]:
-    return [getattr(mod, name) for mod, name in _COUNTERS]
-
-
-def _add_counters(delta: List[int]) -> None:
-    for (mod, name), d in zip(_COUNTERS, delta):
-        setattr(mod, name, getattr(mod, name) + d)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -96,7 +78,8 @@ def cuda_capture(fn: Callable, device: torch.device):
 
 class ShapeGraph:
     """The CUDA graph of one shape of one function, its calls counted in
-    `counts` (see the module docstring)."""
+    `counts`, and the hand-kernel launches of its capture, which each
+    replay adds to the launch registry (see the module docstring)."""
 
     def __init__(self, counts: Dict[str, int]):
         self.counts = counts
@@ -104,6 +87,7 @@ class ShapeGraph:
         self._graph = None
         self._inputs: List[torch.Tensor] = []
         self._outputs = None
+        self._launches: Dict[str, int] = {}
 
     def note_eager(self) -> None:
         """Count a call that ran eagerly, off the gate."""
@@ -125,9 +109,12 @@ class ShapeGraph:
 
     def _record(self, inputs: List[torch.Tensor], fn: Callable) -> None:
         self._inputs = [torch.empty_like(x) for x in inputs]
+        before = launch_counts()
         self._graph, self._outputs = cuda_capture(
             lambda: fn(self._inputs), inputs[0].device
         )
+        self._launches = launches_since(before)
+        add_launches(self._launches, -1)
 
     def _replay(self, inputs: List[torch.Tensor]):
         if [(x.shape, x.dtype) for x in inputs] != [
@@ -140,34 +127,22 @@ class ShapeGraph:
         for dst, src in zip(self._inputs, inputs):
             dst.copy_(src)
         self._graph.replay()
+        add_launches(self._launches)
         return self._outputs
 
 
 class DPGraph(ShapeGraph):
-    """The DP plans and the CUDA graph of one shape; a capture's launch
-    counts are taken back off and added at every replay."""
+    """The DP plans and the CUDA graph of one shape."""
 
     def __init__(self):
-        super().__init__(counts)
+        super().__init__(dp_graph_calls)
         self.plans: Dict[tuple, list] = {}
-        self._delta: List[int] = []
 
     def plan(self, key: tuple, build: Callable) -> list:
         """The plan under key, built at the first call."""
         if key not in self.plans:
             self.plans[key] = build()
         return self.plans[key]
-
-    def _record(self, resps: List[torch.Tensor], dp: Callable) -> None:
-        before = _read_counters()
-        super()._record(resps, dp)
-        self._delta = [a - b for a, b in zip(_read_counters(), before)]
-        _add_counters([-d for d in self._delta])
-
-    def _replay(self, resps: List[torch.Tensor]):
-        out = super()._replay(resps)
-        _add_counters(self._delta)
-        return out
 
 
 class PyramidGraph(ShapeGraph):
@@ -176,7 +151,7 @@ class PyramidGraph(ShapeGraph):
     filled at the eager call and read by the capture."""
 
     def __init__(self):
-        super().__init__(pyramid_counts)
+        super().__init__(pyramid_graph_calls)
         self.consts: Dict[tuple, object] = {}
 
 

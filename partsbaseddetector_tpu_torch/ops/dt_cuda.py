@@ -47,14 +47,7 @@ import math
 import torch
 
 from .. import kernels
-
-# launches of the CUDA kernels by dt1d, by DT1dFunction's backward and by
-# dt1d_window (the plain versions do not count); aux_launches counts the
-# dt1d launches that carried aux (the x passes, K3's work)
-launches = 0
-aux_launches = 0
-bwd_launches = 0
-window_launches = 0
+from ..utils.profiling import hand_launches
 
 _NEG_INF = -math.inf
 # csrc/dt1d_core.cuh's kR and kV: the consecutive output rows one thread owns
@@ -232,7 +225,6 @@ def _map_args(src, a, b, shift, nvalid):
 
 
 def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
-    global launches, aux_launches
     bsz, h, w = src.shape
     _check_args("dt1d", src, _map_args(src, a, b, shift, nvalid), aux)
     out = torch.empty((bsz, dlen, w), dtype=torch.float32, device=src.device)
@@ -246,9 +238,9 @@ def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
             torch.cuda.current_stream(src.device).cuda_stream,
         )
     kernels.check(rc, "dt1d kernel launch")
-    launches += 1
+    hand_launches["dt1d"] += 1
     if aux is not None:
-        aux_launches += 1
+        hand_launches["dt1d_aux"] += 1
     return out, ptr
 
 
@@ -385,7 +377,6 @@ def dt1d_bwd_order_plain(g_out, out, ptr, shift, h: int, step: int,
 
 
 def _dt1d_bwd_cuda(g_out, out, ptr, shift, h, step, has_aux):
-    global bwd_launches
     bsz, dlen, w = g_out.shape
     for name, t, dtype in (
         ("g_out", g_out, torch.float32), ("out", out, torch.float32),
@@ -412,7 +403,7 @@ def _dt1d_bwd_cuda(g_out, out, ptr, shift, h, step, has_aux):
             torch.cuda.current_stream(g_out.device).cuda_stream,
         )
     kernels.check(rc, "dt1d backward kernel launch")
-    bwd_launches += 1
+    hand_launches["dt1d_bwd"] += 1
     return g_src, g_a, g_b
 
 
@@ -511,7 +502,6 @@ def dt1d_window_plain(src, a, b, shift, nvalid, out_valid, dlen: int,
 
 
 def _dt1d_window_cuda(src, a, b, shift, nvalid, out_valid, dlen, aux):
-    global window_launches
     bsz, h, w = src.shape
     _check_args(
         "dt1d_window", src,
@@ -535,7 +525,7 @@ def _dt1d_window_cuda(src, a, b, shift, nvalid, out_valid, dlen, aux):
             torch.cuda.current_stream(src.device).cuda_stream,
         )
     kernels.check(rc, "dt1d_window kernel launch")
-    window_launches += 1
+    hand_launches["dt1d_window"] += 1
     return out, ptr
 
 

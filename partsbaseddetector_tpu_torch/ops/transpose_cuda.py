@@ -23,10 +23,7 @@ import math
 import torch
 
 from .. import kernels
-
-# launches of the CUDA kernel by transpose_last2 and transpose_last2_pair
-# (one per call, single or pair; the plain versions do not count)
-launches = 0
+from ..utils.profiling import hand_launches
 
 _WORD_TYPES = (torch.float32, torch.int32)
 
@@ -43,7 +40,6 @@ def transpose_last2_pair_plain(x: torch.Tensor, y: torch.Tensor):
 
 def _transpose_cuda(x: torch.Tensor, y: torch.Tensor = None):
     """One launch over x, or over x and y (same shape and device)."""
-    global launches
     both = (x,) if y is None else (x, y)
     for t in both:
         if t.dtype not in _WORD_TYPES:
@@ -70,7 +66,7 @@ def _transpose_cuda(x: torch.Tensor, y: torch.Tensor = None):
             bsz, h, w, torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(rc, "transpose kernel launch")
-    launches += 1
+    hand_launches["transpose"] += 1  # one a call, single or pair
     return outs
 
 

@@ -31,7 +31,6 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import conv_proto_cuda
 from ..ops.conv import filter_responses
 from ..ops.conv_proto_cuda import (
     C,
@@ -42,7 +41,7 @@ from ..ops.conv_proto_cuda import (
     weights_k_major,
 )
 from ..utils.device import resolve_device
-from ..utils.profiling import cuda_ms, device_ms
+from ..utils.profiling import cuda_ms, device_ms, launch_counts
 
 RTOL = 1e-5  # per output, of sum|x*w|
 ATOL = 2e-3  # the tool's check against lax.conv
@@ -66,9 +65,9 @@ def run(s: int, f: int, h: int, w: int, toh: int, device) -> dict:
     filt = torch.as_tensor(filt_np, device=dev)
     feat_t = feat.permute(0, 1, 3, 2).contiguous()  # (S, H, C, W)
     w2 = weights_k_major(filt)
-    before = conv_proto_cuda.launches
+    before = launch_counts()["conv"]
     got = conv_proto(feat_t, w2, f, toh)
-    launches = conv_proto_cuda.launches - before
+    launches = launch_counts()["conv"] - before
     want = conv_proto_plain(feat_t, w2, f)
     scale = conv_proto_plain(feat_t.abs(), w2.abs(), f)
     k2_plain = filter_responses(feat, filt)

@@ -352,7 +352,7 @@ def warp_chunks(torch, keep) -> int:
 
 
 def bwd_inputs(torch) -> list:
-    """chip_smoke.py's person26 240x320 finest-bucket pair for K4: y
+    """The person26 240x320 finest-bucket pair for K4: y
     (320, 66, 86), then x with aux (320, 86, 66), forward outputs from
     K1 on the card and N(0, 1) cotangents. Each case is the argument
     tuple of dt1d_bwd: (g, out, ptr, shift, h, step, has_aux)."""

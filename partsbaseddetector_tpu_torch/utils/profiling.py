@@ -18,18 +18,22 @@ prints, SURVEY.md §5):
   - checked(): wraps a function so that the first op that makes a NaN
     raises (the counterpart of the JAX package's checkify guards);
   - device_profile(), kernel_family(): device ms of a profiled window
-    by family of the port's kernels, which chip_smoke.py reports;
+    by family of the port's kernels;
   - window(), launch_counts(), require_launches(), profiled(): the
     profiler window every reading here takes, the hand kernels'
-    launches by family as their wrappers count them, and the check
-    that a window recorded a kernel event for each;
+    launches by family as their wrappers count them into the launch
+    registry `hand_launches`, and the check that a window recorded a
+    kernel event for each;
   - dp_graph_counts(), pyramid_graph_counts(): the inference DP's and
     pyramid's CUDA-graph captures, replays and eager calls;
   - tree_counts(): the detect path's images, (bucket, tree) DPs, walks
     and candidate rows, as detector.py's _run adds them up;
   - cuda_ms(), device_ms(): the CUDA-event and profiler timers of the
-    tools and chip_smoke.py;
+    tools;
   - validate_image(): input validation for the public detect API.
+
+Every counter here is a module dict that the layers above add to; this
+module imports nothing of theirs.
 """
 
 from __future__ import annotations
@@ -322,6 +326,15 @@ FAMILIES = (("dt1d_window", "dt1d_window"), ("dt1d_bwd", "dt1d_axis2_bwd"),
 # (launch_counts), and the x passes among the dt1d launches
 HAND_FAMILIES = ("dt1d_window", "dt1d_bwd", "dt1d", "dt1d_aux", "conv", "transpose")
 
+# The launch registry: each wrapper of ops/*_cuda.py adds one to its
+# family a launch (the plain versions count nothing). "dt1d" counts K1
+# and K3's x passes, "dt1d_aux" those x passes again, "dt1d_window" K5,
+# "dt1d_bwd" K4, "conv" K2 and T1 (both conv3xtf32 kernels), "transpose"
+# T2. A CUDA graph's capture runs the wrappers and launches nothing, a
+# replay launches and runs no wrapper: ops/dp_graph.py::ShapeGraph takes
+# a capture's counts back off and adds them again at each replay.
+hand_launches: Dict[str, int] = dict.fromkeys(HAND_FAMILIES, 0)
+
 
 def kernel_family(name: str) -> str:
     """The FAMILIES key of a device event's name, or "other"."""
@@ -383,23 +396,21 @@ def device_profile(prof, per: float = 1.0) -> dict:
 
 
 def launch_counts() -> Dict[str, int]:
-    """The hand kernels' launches so far, by HAND_FAMILIES, as their
-    wrappers count them (ops/*_cuda.py; the plain
-    versions count nothing): dt_cuda.launches (K1 and K3's x passes),
-    of those dt_cuda.aux_launches (the x passes), window_launches (K5),
-    bwd_launches (K4), transpose_cuda.launches (T2), and
-    conv_cuda.launches + conv_proto_cuda.launches (K2 and T1, both
-    conv3xtf32 kernels)."""
-    from ..ops import conv_cuda, conv_proto_cuda, dt_cuda, transpose_cuda
+    """The hand kernels' launches so far, by HAND_FAMILIES: a copy of
+    the launch registry `hand_launches`."""
+    return dict(hand_launches)
 
-    return {
-        "dt1d_window": dt_cuda.window_launches,
-        "dt1d_bwd": dt_cuda.bwd_launches,
-        "dt1d": dt_cuda.launches,
-        "dt1d_aux": dt_cuda.aux_launches,
-        "conv": conv_cuda.launches + conv_proto_cuda.launches,
-        "transpose": transpose_cuda.launches,
-    }
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add `times` x counts (by HAND_FAMILIES keys) to the registry."""
+    for fam, n in counts.items():
+        hand_launches[fam] += times * n
+
+
+# the inference DP's and pyramid's calls by how they ran, which each
+# ops/dp_graph.py::ShapeGraph counts in
+dp_graph_calls: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
+pyramid_graph_calls: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
 
 
 def dp_graph_counts() -> Dict[str, int]:
@@ -409,9 +420,7 @@ def dp_graph_counts() -> Dict[str, int]:
     first call, and every call the graph does not engage for: CPU maps,
     trainable weights, autograd on). The graph's hit share is replays
     over the three."""
-    from ..ops import dp_graph
-
-    return dict(dp_graph.counts)
+    return dict(dp_graph_calls)
 
 
 def pyramid_graph_counts() -> Dict[str, int]:
@@ -420,9 +429,7 @@ def pyramid_graph_counts() -> Dict[str, int]:
     DP's: `captures`, `replays` and `eager` (a shape's first call, and
     every call with a graph that it does not engage for). The graph's
     hit share is replays over the three."""
-    from ..ops import dp_graph
-
-    return dict(dp_graph.pyramid_counts)
+    return dict(pyramid_graph_calls)
 
 
 # the detect path's work by tree so far: detector.py's _run adds to it

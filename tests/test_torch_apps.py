@@ -336,19 +336,19 @@ def test_visualization_matches_the_jax_one(name):
     assert got.size and got.max() > 0
 
 
-def test_chip_smokes_picture_shapes_are_the_jax_packages():
-    """chip_smoke.py checks person26's pictures on the card machine, which
-    has no JAX, against these shapes."""
-    import sys
-
+def test_the_ports_picture_shapes_are_the_jax_packages():
+    """person26's model mosaic and a filter's HOG picture have the JAX
+    package's shapes, the ones tests/test_torch_cuda.py holds the card
+    machine (which has no JAX) to."""
     from partsbaseddetector_tpu.models.model import make_person_like_model
-
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    from test_torch_cuda import HOG_GLYPH_SHAPE, PERSON26_MOSAIC_SHAPE
 
     jmodel = make_person_like_model()
-    assert jvm.visualize_model(jmodel).shape == chip_smoke.PERSON26_MOSAIC_SHAPE
-    assert jvm.hog_picture(jmodel.filters[0]).shape == chip_smoke.HOG_GLYPH_SHAPE
+    model = model_from_jax(jmodel)
+    assert (vm.visualize_model(model).shape == jvm.visualize_model(jmodel).shape
+            == PERSON26_MOSAIC_SHAPE)
+    assert vm.hog_picture(model.filters[0]).shape == jvm.hog_picture(
+        jmodel.filters[0]).shape == HOG_GLYPH_SHAPE
 
 
 def test_visualize_saves_an_image(tmp_path):

@@ -24,8 +24,8 @@ import pytest
 import torch
 
 from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model, pipeline
-from partsbaseddetector_tpu_torch.ops import dp_graph, dt_cuda
-from partsbaseddetector_tpu_torch.utils.profiling import dp_graph_counts
+from partsbaseddetector_tpu_torch.ops import dp_graph
+from partsbaseddetector_tpu_torch.utils.profiling import dp_graph_counts, launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -150,10 +150,14 @@ def test_the_hybrid_profile_and_the_window_dt_replay_alike(cuda, profile, monkey
     with monkeypatch.context() as m:
         _eager(m)
         want = [det.detect(f) for f in frames]
-    before = dt_cuda.window_launches
+    counts = []
     for i in (0, 1, 0, 1):
+        before = launch_counts()
         _same_candidates(det.detect(frames[i]), want[i])
-    assert (dt_cuda.window_launches > before) == (profile == "window")
+        counts.append({k: n - before[k] for k, n in launch_counts().items()})
+    # a capture's and every replay's launches count as the eager call's
+    assert all(c == counts[0] for c in counts)
+    assert (counts[0]["dt1d_window"] > 0) == (profile == "window")
 
 
 _PROFILED_REPLAY = """

@@ -24,11 +24,11 @@ from partsbaseddetector_tpu_torch import PartsBasedDetector, pipeline
 from partsbaseddetector_tpu_torch import detector as detector_mod
 from partsbaseddetector_tpu_torch.models.model import make_synthetic_model, pack_model, to_device
 from partsbaseddetector_tpu_torch.ops import dp as tdp
-from partsbaseddetector_tpu_torch.ops import dp_graph, dt_cuda, transpose_cuda
+from partsbaseddetector_tpu_torch.ops import dp_graph
 from partsbaseddetector_tpu_torch.train.sgd import model_params
 from partsbaseddetector_tpu_torch.ops.pyramid import mask_responses, response_valid_extents
 from partsbaseddetector_tpu_torch.utils import dp_graph_counts, pyramid_graph_counts
-from partsbaseddetector_tpu_torch.utils.profiling import launch_counts
+from partsbaseddetector_tpu_torch.utils.profiling import hand_launches, launch_counts
 
 
 def _model(octave: bool):
@@ -240,15 +240,14 @@ class _Inert:
 
 
 def test_a_capture_takes_its_launches_off_the_counters_and_a_replay_adds_them(monkeypatch):
-    for mod, name in ((dt_cuda, "launches"), (dt_cuda, "aux_launches"),
-                      (dt_cuda, "window_launches"), (transpose_cuda, "launches")):
-        monkeypatch.setattr(mod, name, getattr(mod, name))
+    for fam, n in hand_launches.items():
+        monkeypatch.setitem(hand_launches, fam, n)
 
     def dp(resps):  # what the wrappers count while the DP is captured
-        dt_cuda.launches += 4
-        dt_cuda.aux_launches += 2
-        dt_cuda.window_launches += 3
-        transpose_cuda.launches += 5
+        hand_launches["dt1d"] += 4
+        hand_launches["dt1d_aux"] += 2
+        hand_launches["dt1d_window"] += 3
+        hand_launches["transpose"] += 5
         return [r + 1 for r in resps]
 
     monkeypatch.setattr(dp_graph, "cuda_capture", lambda fn, device: (_Inert(), fn()))

@@ -9,7 +9,7 @@ and g_b go per lane, then by a shuffle tree, then by warp. The card tests hold t
 Here, on the CPU, the statement itself is held to dt1d_bwd_plain and to
 the JAX package's gradients (the interpreted Pallas kernel's custom VJP,
 `_diff_dt`, and autodiff of the XLA path) within the magnitude rule of
-chip_smoke.py: 1e-5 * sum|g| per source, 1e-5 * sum|g*d^2| and sum|g*d|
+tests/test_torch_cuda.py: 1e-5 * sum|g| per source, 1e-5 * sum|g*d^2| and sum|g*d|
 per map, since only the order of the sums differs. Where every sum is
 exact (small integers) it equals dt1d_bwd_plain bit for bit.
 """
@@ -24,7 +24,7 @@ from partsbaseddetector_tpu.ops import distance_transform as jdt
 from partsbaseddetector_tpu.ops.pallas_dt import dt1d_pallas
 from partsbaseddetector_tpu_torch.ops import dt_cuda
 
-RTOL = 1e-5  # chip_smoke.py's DT_BWD_RTOL, times dt1d_bwd_magnitudes
+RTOL = 1e-5  # tests/test_torch_cuda.py's DT_BWD_RTOL, times dt1d_bwd_magnitudes
 
 
 def _case(seed, bsz, h, w, dlen, step=1, aux=False, ints=False, dead=False):

@@ -1,6 +1,6 @@
 """The torch port must never import jax, optax or orbax (its package,
 training, the surfaces, parallel/, the examples and the bench entry
-point included, and chip_smoke.py), nor need PyYAML
+point included), nor need PyYAML
 or PIL to import (the card's machine may lack them: only reading .yml
 models, parse_config and the demo's image I/O use them, at call time),
 nor build or load a kernel library when imported (`ops` included).
@@ -39,7 +39,6 @@ SCRIPT = textwrap.dedent(
 
     for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(info.name)
-    import chip_smoke  # noqa: F401
 
     for mod in ("train.sgd", "train.fit", "train.checkpoint", "pipeline",
                 "ops.reference_pipeline", "train.detect_tpu", "train.latent",

@@ -2,7 +2,7 @@
 (utils/profiling.py: device_profile's kernel-event counts per family,
 launch_counts, require_launches, profiled), on synthetic profiler events
 that carry the hand kernels' names as torch.profiler shows them on the
-card, and on the CPU profiler with the wrappers' counters moved by hand.
+card, and on the CPU profiler with the launch registry moved by hand.
 """
 
 import contextlib
@@ -10,8 +10,6 @@ import contextlib
 import pytest
 import torch
 
-from partsbaseddetector_tpu_torch.ops import conv_cuda, conv_proto_cuda, dt_cuda
-from partsbaseddetector_tpu_torch.ops import transpose_cuda
 from partsbaseddetector_tpu_torch.utils import profiling
 
 _DT_ARGS = ("(float const*, int const*, float const*, float const*, float const*, "
@@ -97,19 +95,23 @@ def test_a_window_one_launch_short_raises_and_names_the_family(family):
 
 
 def test_launch_counts_read_the_wrappers_counters(monkeypatch):
-    for mod, attr, n in ((dt_cuda, "launches", 9), (dt_cuda, "aux_launches", 4),
-                         (dt_cuda, "bwd_launches", 3), (dt_cuda, "window_launches", 2),
-                         (conv_cuda, "launches", 5), (conv_proto_cuda, "launches", 1),
-                         (transpose_cuda, "launches", 7)):
-        monkeypatch.setattr(mod, attr, n)
+    """launch_counts() reads the registry the wrappers add to, in
+    HAND_FAMILIES' order; add_launches moves it by a multiple of a
+    reading."""
+    for fam, n in (("dt1d", 9), ("dt1d_aux", 4), ("dt1d_bwd", 3), ("dt1d_window", 2),
+                   ("conv", 6), ("transpose", 7)):
+        monkeypatch.setitem(profiling.hand_launches, fam, n)
     before = profiling.launch_counts()
     assert before == {"dt1d": 9, "dt1d_aux": 4, "dt1d_bwd": 3, "dt1d_window": 2,
                       "conv": 6, "transpose": 7}
-    monkeypatch.setattr(conv_proto_cuda, "launches", 3)
-    monkeypatch.setattr(dt_cuda, "aux_launches", 5)
+    assert tuple(before) == profiling.HAND_FAMILIES
+    profiling.hand_launches["conv"] += 2  # a K2 and a T1 launch
+    profiling.add_launches({"dt1d_aux": 1})
     assert profiling.launches_since(before) == {
         "dt1d": 0, "dt1d_aux": 1, "dt1d_bwd": 0, "dt1d_window": 0, "conv": 2,
         "transpose": 0}
+    profiling.add_launches({"dt1d_aux": 1, "conv": 2}, -1)
+    assert profiling.launch_counts() == before
 
 
 def test_profiled_raises_on_launches_its_window_did_not_record(monkeypatch):
@@ -130,10 +132,10 @@ def test_profiled_raises_on_launches_its_window_did_not_record(monkeypatch):
     assert got["launches"]["transpose"] == 0
 
     def launch():
-        transpose_cuda.launches += 1
+        profiling.hand_launches["transpose"] += 1
         x.add(1)
 
-    monkeypatch.setattr(transpose_cuda, "launches", 0)
+    monkeypatch.setitem(profiling.hand_launches, "transpose", 0)
     with pytest.raises(RuntimeError, match="incomplete profile: transpose recorded 0"):
         profiling.profiled(launch)
 

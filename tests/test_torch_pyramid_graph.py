@@ -41,7 +41,7 @@ from partsbaseddetector_tpu_torch.models.model import make_synthetic_model, pack
 from partsbaseddetector_tpu_torch.ops import dp_graph, hog, resize
 from partsbaseddetector_tpu_torch.ops.pyramid import build_pyramid_features
 from partsbaseddetector_tpu_torch.train.sgd import model_params
-from partsbaseddetector_tpu_torch.utils import dp_graph_counts, pyramid_graph_counts
+from partsbaseddetector_tpu_torch.utils import dp_graph_counts, profiling, pyramid_graph_counts
 
 BENCH = Path(__file__).resolve().parents[1] / "benchmark"
 VGA = (480, 640)
@@ -232,6 +232,37 @@ def test_a_uint8_and_a_float_frame_keep_graphs_of_their_own(monkeypatch):
         _same_candidates(det.detect(im), want)
     assert [key[2] for key in det._graphs] == [torch.uint8, torch.float32]
     assert _delta(before) == {"eager": 1, "captures": 2, "replays": 1}
+
+
+class _Inert:
+    """A stand-in CUDA graph whose replay, like a real one, runs none of
+    the captured function's Python."""
+
+    def replay(self):
+        pass
+
+
+def test_any_graph_counts_the_launches_its_replays_make(monkeypatch):
+    """A graph of any function, here one that launches K2 as
+    conv_cuda's wrapper counts it: the eager call, the capture (which
+    runs the wrapper and launches nothing) and a replay (which launches
+    and runs no wrapper) count one conv launch each, as the card runs
+    them."""
+    for fam, n in profiling.hand_launches.items():
+        monkeypatch.setitem(profiling.hand_launches, fam, n)
+    monkeypatch.setattr(dp_graph, "cuda_capture", lambda fn, device: (_Inert(), fn()))
+
+    def conv(inputs):
+        profiling.hand_launches["conv"] += 1
+        return [x + 1 for x in inputs]
+
+    graph = dp_graph.ShapeGraph({"captures": 0, "replays": 0, "eager": 0})
+    before = profiling.launch_counts()
+    for _ in range(3):
+        graph.run([torch.zeros(2, 3)], conv)
+    assert graph.counts == {"captures": 1, "replays": 1, "eager": 1}
+    assert profiling.launches_since(before) == dict.fromkeys(profiling.HAND_FAMILIES, 0) | {
+        "conv": 3}
 
 
 # -- the card ------------------------------------------------------------------

@@ -16,6 +16,7 @@ import torch
 from partsbaseddetector_tpu.ops import distance_transform as jdt
 from partsbaseddetector_tpu_torch.ops import distance_transform as tdt
 from partsbaseddetector_tpu_torch.ops import transpose_cuda as tc
+from partsbaseddetector_tpu_torch.utils.profiling import launch_counts
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -24,9 +25,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 @pytest.mark.parametrize("shape", [(1, 1, 1), (3, 33, 31), (2, 4, 5, 7)])
 def test_transpose_plain_on_cpu(shape, dtype):
     x = torch.arange(int(np.prod(shape)), dtype=dtype).reshape(shape)
-    before = tc.launches
+    before = launch_counts()
     got = tc.transpose_last2(x)
-    assert tc.launches == before
+    assert launch_counts() == before
     assert got.is_contiguous()
     assert torch.equal(got, x.transpose(-1, -2))
     assert torch.equal(tc.transpose_last2(got), x)
@@ -57,9 +58,9 @@ def test_transpose_pair_on_cpu_is_two_plain_transposes(shape):
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
     x.view(-1)[::3] = -torch.inf
     y = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, shape).astype(np.int32))
-    before = tc.launches
+    before = launch_counts()
     xt, yt = tc.transpose_last2_pair(x, y)
-    assert tc.launches == before
+    assert launch_counts() == before
     assert xt.dtype == torch.float32 and yt.dtype == torch.int32
     assert xt.is_contiguous() and yt.is_contiguous()
     assert torch.equal(xt, tc.transpose_last2_plain(x))
