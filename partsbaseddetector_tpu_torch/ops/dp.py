@@ -21,7 +21,10 @@ and never win a max.
 Backtracking mirrors detect_fast.m:144-177: the best root placements
 (a stable top-k: equal scores keep the lower flat index first, as
 jax.lax.top_k does) are walked root-to-leaves through the pointer
-tables with gathers.
+tables with gathers. Every constant a walk uploads (the buckets' flat
+offsets and grids, the parts' table offsets, the box scales) is
+`walk_plan`'s, built once per shape by the detector, so that its CUDA
+graph replays the walks without a copy.
 
 Every map carries a leading image axis B (the JAX package's vmap over
 images, written out): responses (B, S, Hr, Wr, F), root maps
@@ -331,54 +334,119 @@ def _pad_top_k(vals, idx, k, max_det):
     return vals, idx
 
 
+class WalkPlan(NamedTuple):
+    """Every device constant a backtrack walk reads besides the DP's maps
+    and the model, on the maps' device: `walk_plan`'s. The merged walk's
+    fields are None in a per-bucket walk's plan."""
+
+    images: torch.Tensor  # (B,) int64: 0..B-1
+    # (sum S_b,) every bucket's box scales, bucket-major, in the maps' dtype
+    box_scales: torch.Tensor
+    # the merged walk's, int64: per bucket (NB,) the flat root index
+    # where it starts, its maps' height and width and its first row of
+    # box_scales; 0..P-1; per tree level, root side first, the level's
+    # parts' offsets (G, 1, 1) into the flat pointer table
+    offsets: Optional[torch.Tensor] = None
+    heights: Optional[torch.Tensor] = None
+    widths: Optional[torch.Tensor] = None
+    scale_offsets: Optional[torch.Tensor] = None
+    parts: Optional[torch.Tensor] = None
+    level_bases: Optional[List[torch.Tensor]] = None
+
+
+def walk_plan(
+    rootvs: List[torch.Tensor],
+    box_scales_list: List[torch.Tensor],
+    comp: Optional[PackedComponent] = None,
+) -> WalkPlan:
+    """The device constants of a walk over root maps of these shapes: they
+    follow from the maps' shapes, dtype and device (not their values),
+    the box scales and the tree, so a caller that walks one shape again
+    and again builds them once (the detector keeps them with its tail's
+    CUDA graph, which then replays the walks without a copy). rootvs:
+    per bucket (B, S_b, H_b, W_b); box_scales_list: per bucket (S_b,);
+    comp: backtrack_merged's component, for its flat offsets (without it
+    the per-bucket walk's plan, from one bucket)."""
+    dev = rootvs[0].device
+    dtype = rootvs[0].dtype
+    images = torch.arange(int(rootvs[0].shape[0]), device=dev)
+    box_scales = torch.cat([b.to(dtype) for b in box_scales_list])
+    if comp is None:
+        return WalkPlan(images, box_scales)
+    s_l = [int(rv.shape[1]) for rv in rootvs]
+    h_l = [int(rv.shape[2]) for rv in rootvs]
+    w_l = [int(rv.shape[3]) for rv in rootvs]
+    ends = np.cumsum([s * h * w for s, h, w in zip(s_l, h_l, w_l)])
+    per_part = comp.maxmix * int(ends[-1])
+    levels = _levels(comp)
+    return WalkPlan(
+        images, box_scales,
+        offsets=torch.as_tensor(np.concatenate([[0], ends[:-1]]).astype(np.int64),
+                                device=dev),
+        heights=torch.as_tensor(h_l, device=dev),
+        widths=torch.as_tensor(w_l, device=dev),
+        scale_offsets=torch.as_tensor(
+            np.concatenate([[0], np.cumsum(s_l)[:-1]]).astype(np.int64), device=dev
+        ),
+        parts=torch.arange(comp.nparts, device=dev),
+        level_bases=[
+            torch.as_tensor(
+                (np.asarray(levels[d], np.int64) - 1) * per_part, device=dev
+            )[:, None, None]
+            for d in sorted(levels)
+        ],
+    )
+
+
 def backtrack_merged(
     rootvs: List[torch.Tensor],
     rootis: List[torch.Tensor],
     tables_list: List[Dict[int, torch.Tensor]],
     comp: PackedComponent,
     dcomp: DeviceComponent,
-    box_scales_list: List[torch.Tensor],
+    box_scales_list: Optional[List[torch.Tensor]],
     box_off_x: int,
     box_off_y: int,
     thresh: float,
     max_det: int,
+    plan: Optional[WalkPlan] = None,
 ):
     """Candidate extraction across all buckets of a component plus one
     level-batched tree walk: one top-k per image over the concatenated
     root maps, bucket/scale/coords recovered from static offsets, and
     one pointer-table gather per tree level. Requires all parts on the
     root grid (ds_total == 0). rootvs/rootis: per bucket (B, S, H, W);
-    tables_list: per bucket {p: (B, S, L, H, W)}.
+    tables_list: per bucket {p: (B, S, L, H, W)}; box_scales_list: per
+    bucket (S,), read only to build the plan.
+    plan (optional): walk_plan(rootvs, box_scales_list, comp), built here
+    when not given; with it the walk copies nothing to the device and
+    never waits for it.
 
     Returns (boxes (B, max_det, P, 4) [x1, y1, x2, y2], scores
     (B, max_det), mixtures (B, max_det, P) int32, valid (B, max_det),
     coords (bucket, scale, xs (B, max_det, P), ys)).
     """
+    if plan is None:
+        plan = walk_plan(rootvs, box_scales_list, comp)
     nb = len(rootvs)
     p_total = comp.nparts
     m_total = comp.maxmix
-    dev = rootvs[0].device
     dtype = rootvs[0].dtype
     nimg = int(rootvs[0].shape[0])
-    s_l = [int(rv.shape[1]) for rv in rootvs]
-    h_l = [int(rv.shape[2]) for rv in rootvs]
-    w_l = [int(rv.shape[3]) for rv in rootvs]
-    n_l = [s * h * w for s, h, w in zip(s_l, h_l, w_l)]
-    off = np.concatenate([[0], np.cumsum(n_l)]).astype(np.int64)
-    ntot = int(off[-1])
+    ends = np.cumsum([math.prod(rv.shape[1:]) for rv in rootvs])
+    ntot = int(ends[-1])
 
     flat = torch.cat([rv.reshape(nimg, -1) for rv in rootvs], dim=1)
     k = min(max_det, ntot)
     vals, idx = _pad_top_k(*stable_top_k(flat, k), k, max_det)
     valid = vals >= thresh
 
-    off_t = torch.as_tensor(off, device=dev)
-    bid = torch.zeros(idx.shape, dtype=torch.int64, device=dev)
+    bid = torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
     for b in range(1, nb):
-        bid = bid + (idx >= int(off[b])).long()
-    off_arr = off_t[:nb][bid]
-    hc = torch.as_tensor(h_l, device=dev)[bid]
-    wc = torch.as_tensor(w_l, device=dev)[bid]
+        bid = bid + (idx >= int(ends[b - 1])).long()
+    off_arr = plan.offsets[bid]
+    hc = plan.heights[bid]
+    wc = plan.widths[bid]
     local = idx - off_arr
     hw = hc * wc
     si = local // hw
@@ -392,7 +460,6 @@ def backtrack_merged(
     # one flat table buffer per image: part-major, then bucket-major
     # inside — entry (p, b, s, l, y, x) lives at
     # (p-1)*M*ntot + M*off[b] + ((s*M + l)*Hb + y)*Wb + x
-    per_part = m_total * ntot
     if p_total > 1:
         t_flat = torch.cat(
             [
@@ -403,18 +470,15 @@ def backtrack_merged(
             dim=1,
         )
     t_off = m_total * off_arr
-    img = torch.arange(nimg, device=dev)[None, :, None]
+    img = plan.images[None, :, None]
 
     xs: List[torch.Tensor] = [None] * p_total
     ys: List[torch.Tensor] = [None] * p_total
     ms: List[torch.Tensor] = [None] * p_total
     xs[0], ys[0], ms[0] = xi, yi, mi
     levels = _levels(comp)
-    for d in sorted(levels):
+    for d, base in zip(sorted(levels), plan.level_bases):
         parts = levels[d]
-        base = torch.as_tensor(
-            (np.asarray(parts, np.int64) - 1) * per_part, device=dev
-        )[:, None, None]
         par_x = torch.stack([xs[int(comp.parentid[p])] for p in parts])
         par_y = torch.stack([ys[int(comp.parentid[p])] for p in parts])
         par_m = torch.stack([ms[int(comp.parentid[p])] for p in parts])
@@ -428,14 +492,12 @@ def backtrack_merged(
         for g, p in enumerate(parts):
             xs[p], ys[p], ms[p] = xg[g], yg[g], mg[g]
 
-    soff = np.concatenate([[0], np.cumsum(s_l)]).astype(np.int64)
-    bsc_flat = torch.cat([b_.to(dtype) for b_ in box_scales_list])
-    root_scale = bsc_flat[torch.as_tensor(soff[:nb], device=dev)[bid] + si]
+    root_scale = plan.box_scales[plan.scale_offsets[bid] + si]
 
     xs_t = torch.stack(xs, dim=-1)  # (B, K, P)
     ys_t = torch.stack(ys, dim=-1)
     ms_t = torch.stack(ms, dim=-1)
-    sz = dcomp.fsize[torch.arange(p_total, device=dev), ms_t]  # (B, K, P, 2)
+    sz = dcomp.fsize[plan.parts, ms_t]  # (B, K, P, 2)
     sc_b = root_scale[..., None]  # ds_total == 0: one grid for all parts
     x1 = (xs_t.to(dtype) + box_off_x) * sc_b
     y1 = (ys_t.to(dtype) + box_off_y) * sc_b
@@ -458,18 +520,23 @@ def backtrack(
     tables: Dict[int, torch.Tensor],
     comp: PackedComponent,
     dcomp: DeviceComponent,
-    box_scales: torch.Tensor,
+    box_scales: Optional[torch.Tensor],
     box_off_x: int,
     box_off_y: int,
     thresh: float,
     max_det: int,
+    plan: Optional[WalkPlan] = None,
 ):
     """Per-bucket candidate extraction and tree walk; parts may sit on
     octave-finer grids (ds_total > 0). Box geometry follows
     detect_fast.m:170-175 (0-based): x1 = (x - padx) * scale,
     x2 = x1 + sizx*scale - 1. rootv/rooti (B, S, Hr, Wr), tables
-    {p: (B, S, L, H, W)}. Same return contract as backtrack_merged, with
-    coords (scale, xs, ys)."""
+    {p: (B, S, L, H, W)}; box_scales (S,), read only to build the plan.
+    plan (optional): walk_plan([rootv], [box_scales]), built here when
+    not given. Same return contract as backtrack_merged, with coords
+    (scale, xs, ys)."""
+    if plan is None:
+        plan = walk_plan([rootv], [box_scales])
     nimg, s, hr, wr = rootv.shape
     p_total = comp.nparts
     dtype = rootv.dtype
@@ -483,7 +550,7 @@ def backtrack(
     yi = rem // wr
     xi = rem % wr
     mi = torch.gather(rooti.reshape(nimg, -1), 1, idx).long()
-    img = torch.arange(nimg, device=rootv.device)[:, None]
+    img = plan.images[:, None]
 
     xs: List[torch.Tensor] = [None] * p_total
     ys: List[torch.Tensor] = [None] * p_total
@@ -495,7 +562,7 @@ def backtrack(
             tables[p][img, si, ms[par], ys[par], xs[par]]
         )
 
-    root_scale = box_scales[si].to(dtype)
+    root_scale = plan.box_scales[si]
     ds = comp.ds_total
     boxes = []
     for p in range(p_total):

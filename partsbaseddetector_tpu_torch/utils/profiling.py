@@ -24,8 +24,9 @@ prints, SURVEY.md §5):
     launches by family as their wrappers count them into the launch
     registry `hand_launches`, and the check that a window recorded a
     kernel event for each;
-  - dp_graph_counts(), pyramid_graph_counts(): the inference DP's and
-    pyramid's CUDA-graph captures, replays and eager calls;
+  - dp_graph_counts(), pyramid_graph_counts(), tail_graph_counts(): the
+    inference DP's, pyramid's and tail's CUDA-graph captures, replays
+    and eager calls;
   - tree_counts(): the detect path's images, (bucket, tree) DPs, walks
     and candidate rows, as detector.py's _run adds them up;
   - cuda_ms(), device_ms(): the CUDA-event and profiler timers of the
@@ -407,10 +408,11 @@ def add_launches(counts: Dict[str, int], times: int = 1) -> None:
         hand_launches[fam] += times * n
 
 
-# the inference DP's and pyramid's calls by how they ran, which each
+# the inference DP's, pyramid's and tail's calls by how they ran, which each
 # ops/dp_graph.py::ShapeGraph counts in
 dp_graph_calls: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
 pyramid_graph_calls: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
+tail_graph_calls: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
 
 
 def dp_graph_counts() -> Dict[str, int]:
@@ -430,6 +432,17 @@ def pyramid_graph_counts() -> Dict[str, int]:
     every call with a graph that it does not engage for). The graph's
     hit share is replays over the three."""
     return dict(pyramid_graph_calls)
+
+
+def tail_graph_counts() -> Dict[str, int]:
+    """The inference tail's calls so far by how they ran
+    (ops/dp_graph.py::TailGraph: the backtrack walks and the select
+    after the DP): `captures` (at a shape's second call, the DP's
+    capture), `replays` and `eager` (a shape's first call, and every
+    call whose DP did not run as its graph: CPU maps, or a detector
+    that ran without graphs). The graph's hit share is replays over the
+    three."""
+    return dict(tail_graph_calls)
 
 
 # the detect path's work by tree so far: detector.py's _run adds to it
