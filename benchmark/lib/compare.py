@@ -4,10 +4,13 @@ held against the plain reference of the same frame.
 A detector's answer to a frame is a list of candidates, best first,
 each with a root score, one box per part, the component and a mixture
 per part. Each candidate is turned back into its placement in its own
-component's tree: the level whose box scale its root box's width gives,
-and every part's cell from its box's corner. A candidate whose component
-the model lacks, or whose parts are not that component's count, makes
-every number inf. Four numbers are then taken, each the largest over
+component's tree: the root's level, whose box scale its root box's
+width over its root filter's own width gives; each part's level, that
+less interval for each octave the part lies below the root; and every
+part's cell from its box's corner on its own level's scale, its box
+from its own filter's size. A candidate whose component the model
+lacks, or whose parts are not that component's count, makes every
+number inf. Four numbers are then taken, each the largest over
 every compared answer:
 
     score_gap   |claimed score - the reference's best score of the
@@ -56,8 +59,9 @@ def answer_readings(cands, det, model, cfg: dict, ref) -> Dict[str, float]:
         if len(c.parts) != nparts or c.mixtures is None or len(c.mixtures) != nparts:
             return {k: math.inf for k in out}
     dev = det.root.device
-    fh, fw = cfg["filter_h"], cfg["filter_w"]
-    pady, padx = fh - 2, fw - 2
+    pady, padx = model.pad
+    sizes = model.sizes.cpu().numpy()
+    interval = int(cfg["interval"])
     scales = np.asarray(det.scales, dtype=np.float64)
     t = lambda a: torch.as_tensor(a, device=dev)
     gap = lambda a, b: float(np.nan_to_num(np.abs(a - b), nan=math.inf).max())
@@ -66,22 +70,30 @@ def answer_readings(cands, det, model, cfg: dict, ref) -> Dict[str, float]:
         rows = np.flatnonzero(comps == comp)
         boxes = np.stack([cands[i].parts for i in rows]).astype(np.float64)  # (N, P, 4)
         mix = np.stack([cands[i].mixtures for i in rows]).astype(np.int64)
+        tree = trees[comp]
+        k = tree.defs.shape[1]
+        nparts = len(tree.parent)
+        fid = tree.filterid.cpu().numpy()[np.arange(nparts)[None, :], mix.clip(0, k - 1)]
+        fh, fw = sizes[fid, 0], sizes[fid, 1]  # (N, P) each part's own filter
         width = boxes[:, 0, 2] - boxes[:, 0, 0] + 1.0
-        est = np.where(width > 0, width / fw, np.nan)
+        est = np.where(width > 0, width / fw[:, 0], np.nan)
         level = np.abs(np.log(scales)[None, :] - np.log(est)[:, None]).argmin(1)
         level = np.where(np.isfinite(est), level, 0)
-        sc = scales[level][:, None]
+        # each part's level (clipped only to index: a root level with no
+        # level an octave below has no root in the reference, -inf there)
+        octaves = np.array(tree.octaves(), dtype=np.int64)
+        levels = (level[:, None] - octaves[None, :] * interval).clip(0)
+        sc = scales[levels]
         xs = np.rint(boxes[..., 0] / sc).astype(np.int64) + padx
         ys = np.rint(boxes[..., 1] / sc).astype(np.int64) + pady
         x1 = (xs - padx) * sc
         y1 = (ys - pady) * sc
         rebuilt = np.stack([x1, y1, x1 + fw * sc - 1, y1 + fh * sc - 1], -1)
         box_gap = gap(boxes, rebuilt) if np.isfinite(est).all() else math.inf
-        k = trees[comp].defs.shape[1]
         bad_mix = ((mix < 0) | (mix >= k)).any(1)
-        lv = t(level)
-        best = ref.root_score_at(det, int(comp), lv, t(xs[:, 0]), t(ys[:, 0])).cpu().numpy()
-        placed = ref.placement_score(det, model, int(comp), lv, t(xs), t(ys),
+        best = ref.root_score_at(det, int(comp), t(level), t(xs[:, 0]),
+                                 t(ys[:, 0])).cpu().numpy()
+        placed = ref.placement_score(det, model, int(comp), t(levels), t(xs), t(ys),
                                      t(mix.clip(0, k - 1))).cpu().numpy()
         placed[bad_mix] = -math.inf
         out.update(score_gap=max(out["score_gap"], gap(got[rows], best)),

@@ -11,26 +11,27 @@ import numpy as np
 import torch
 
 
-def detector(cfg: dict, arrays: dict, device, **overrides):
-    """A PartsBasedDetector over the generated model, with the
-    configuration's profile (dtype, engine, buckets, candidate budget);
-    `overrides` replace detector arguments (the control's precision)."""
-    from partsbaseddetector_tpu_torch import PartsBasedDetector
+def model(cfg: dict, arrays: dict):
+    """The program's `Model` of the generated arrays: each pool filter at
+    its own size, each anchor with its part's ds, the configuration's
+    padding size."""
     from partsbaseddetector_tpu_torch.models.model import Model
 
-    filters = arrays["filters"].cpu().numpy()
+    bank = arrays["filters"].cpu().numpy()
+    sizes = arrays["sizes"].tolist()
     defs, anchors, tables = [], [], []
     parentid, filterid, defid, biasid = [], [], [], []
     offset = 0
     for t in arrays["trees"]:
         fid = t["filterid"].cpu().numpy().astype(np.int32)
+        ds = t["ds"].tolist()
         d = t["defs"].cpu().numpy()
         a = t["anchors"].cpu().numpy()
         bias = t["bias"].cpu().numpy()
         p_, k_ = fid.shape
         base = len(defs)
         defs += [d[p, k].astype(np.float32) for p in range(p_) for k in range(k_)]
-        anchors += [np.array([a[p, k, 0], a[p, k, 1], 0], np.int32)
+        anchors += [np.array([a[p, k, 0], a[p, k, 1], ds[p]], np.int32)
                     for p in range(p_) for k in range(k_)]
         # the root's (1, K) table, then each part's (K_parent, K)
         ids = []
@@ -43,19 +44,27 @@ def detector(cfg: dict, arrays: dict, device, **overrides):
         defid.append([base + np.arange(p * k_, (p + 1) * k_, dtype=np.int32)
                       for p in range(p_)])
         biasid.append(ids)
-    model = Model(
+    return Model(
         name=cfg["name"], interval=cfg["interval"], sbin=cfg["sbin"], thresh=cfg["thresh"],
-        filters=[np.ascontiguousarray(f) for f in filters],
+        filters=[np.ascontiguousarray(f[:h, :w]) for f, (h, w) in zip(bank, sizes)],
         defs=defs, anchors=anchors,
         biases=np.concatenate(tables).astype(np.float32),
         parentid=parentid, filterid=filterid, defid=defid, biasid=biasid,
-        maxsize=(cfg["filter_h"], cfg["filter_w"]),
+        maxsize=tuple(arrays["maxsize"]),
     )
+
+
+def detector(cfg: dict, arrays: dict, device, **overrides):
+    """A PartsBasedDetector over the generated model, with the
+    configuration's profile (dtype, engine, buckets, candidate budget);
+    `overrides` replace detector arguments (the control's precision)."""
+    from partsbaseddetector_tpu_torch import PartsBasedDetector
+
     kw = dict(max_detections=cfg["max_detections"], conv_engine=cfg["conv_engine"],
               buckets_per_octave=cfg["buckets_per_octave"],
               dtype=getattr(torch, cfg["dtype"]), device=device)
     kw.update(overrides)
-    return PartsBasedDetector(model, **kw)
+    return PartsBasedDetector(model(cfg, arrays), **kw)
 
 
 def launch_counts():

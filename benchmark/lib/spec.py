@@ -23,8 +23,20 @@ A configuration's file gives its model in one of two forms (`trees`):
                    K indices into the pool of F filters}; components may
                    differ in size and depth and share filters
 
-Parts are root first (parents[0] == 0, parents[p] < p); every filter has
-the file's filter_h x filter_w.
+Parts are root first (parents[0] == 0, parents[p] < p). Three optional
+keys widen either form; absent, each means what the line says:
+
+    filter_sizes   one [fh, fw] per pool filter (absent: every filter is
+                   the file's filter_h x filter_w)
+    ds             one entry a part, 0 or 1, the root's 0: a part at 1
+                   lies one octave finer than its parent (the anchor's
+                   ds of detect_fast.m); in a tree of the several-tree
+                   form, or beside "parents" in the one-tree form
+                   (absent: every part on its parent's level)
+    maxsize        [h, w], the pyramid's padding size, as the MATLAB
+                   code's model.maxsize (absent: the largest filter
+                   height and width, so filter_h x filter_w where every
+                   filter has that size)
 """
 
 from __future__ import annotations
@@ -70,13 +82,17 @@ def _line(value, what: str) -> str:
     return value
 
 
+def _whole(value) -> bool:
+    return not isinstance(value, bool) and isinstance(value, int) and value >= 1
+
+
 def _count(value, what: str) -> int:
-    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+    if not _whole(value):
         raise SpecError(f"{what}: {value!r} is not a whole number of at least 1")
     return value
 
 
-def _tree(parents, filters, pool: int, k: int, what: str) -> dict:
+def _tree(parents, filters, ds, pool: int, k: int, what: str) -> dict:
     if not isinstance(parents, list) or not parents:
         raise SpecError(f"{what}: parents must be a list of at least one part")
     for p, q in enumerate(parents):
@@ -90,17 +106,52 @@ def _tree(parents, filters, pool: int, k: int, what: str) -> dict:
         for f in row:
             if isinstance(f, bool) or not isinstance(f, int) or not 0 <= f < pool:
                 raise SpecError(f"{what}: part {p}'s filter {f!r} is outside the pool of {pool}")
-    return {"parents": list(parents), "filters": [list(r) for r in filters]}
+    if ds is None:
+        ds = [0] * len(parents)
+    if not isinstance(ds, list) or len(ds) != len(parents):
+        raise SpecError(f"{what}: ds must list the {len(parents)} parts")
+    for p, d in enumerate(ds):
+        if isinstance(d, bool) or not isinstance(d, int) or d not in (0, 1):
+            raise SpecError(f"{what}: part {p}'s ds {d!r} is not 0 or 1")
+    if ds[0]:
+        raise SpecError(f"{what}: part 0, the root, has ds {ds[0]!r}; a root lies on its own level")
+    return {"parents": list(parents), "filters": [list(r) for r in filters], "ds": list(ds)}
+
+
+def _sizes(cfg: dict, pool: int, what: str) -> List[Tuple[int, int]]:
+    given = cfg.get("filter_sizes")
+    if given is None:
+        if not (_whole(cfg.get("filter_h")) and _whole(cfg.get("filter_w"))):
+            raise SpecError(f"{what}: give filter_h and filter_w, or filter_sizes")
+        return [(cfg["filter_h"], cfg["filter_w"])] * pool
+    if not isinstance(given, list) or len(given) != pool:
+        raise SpecError(f"{what}: filter_sizes must give one [fh, fw] to each of the "
+                        f"{pool} pool filters")
+    for f, size in enumerate(given):
+        if not isinstance(size, list) or len(size) != 2 or not all(_whole(x) for x in size):
+            raise SpecError(f"{what}: filter {f}'s size {size!r} is not [fh, fw] of whole "
+                            "numbers of at least 1")
+    return [tuple(size) for size in given]
+
+
+def _maxsize(cfg: dict, sizes: List[Tuple[int, int]], what: str) -> Tuple[int, int]:
+    given = cfg.get("maxsize")
+    if given is None:
+        return max(h for h, _ in sizes), max(w for _, w in sizes)
+    if not isinstance(given, list) or len(given) != 2 or not all(_whole(x) for x in given):
+        raise SpecError(f"{what}: maxsize {given!r} is not [h, w] of whole numbers of at least 1")
+    return tuple(given)
 
 
 def trees(cfg: dict) -> Tuple[int, List[dict]]:
     """(pool size, trees) of a configuration in either form (above), each
-    tree {"parents", "filters"}: the one tree is the one-component case.
-    Raises SpecError where the model is malformed."""
+    tree {"parents", "filters", "ds"}: the one tree is the one-component
+    case. Raises SpecError where the model, its sizes or its padding
+    are malformed."""
     what = f"config {cfg.get('name')}"
     k = _count(cfg.get("mixtures"), f"{what}: mixtures")
     if "trees" in cfg:
-        for key in ("parts", "parents"):
+        for key in ("parts", "parents", "ds"):
             if key in cfg:
                 raise SpecError(f"{what}: {key!r} belongs to the one-tree form, not beside trees")
         pool = _count(cfg.get("pool"), f"{what}: pool")
@@ -111,18 +162,34 @@ def trees(cfg: dict) -> Tuple[int, List[dict]]:
             raise SpecError(f"{what}: components {cfg['components']!r} for {len(given)} trees")
         out = []
         for c, t in enumerate(given):
-            if not isinstance(t, dict) or set(t) != {"parents", "filters"}:
-                raise SpecError(f"{what}: tree {c} must have the keys parents and filters")
-            out.append(_tree(t["parents"], t["filters"], pool, k, f"{what}: tree {c}"))
-        return pool, out
-    parts = _count(cfg.get("parts"), f"{what}: parts")
-    if cfg.get("components", 1) != 1:
-        raise SpecError(f"{what}: the one-tree form has one component; give trees for more")
-    parents = cfg.get("parents")
-    if not isinstance(parents, list) or len(parents) != parts:
-        raise SpecError(f"{what}: parents must list the {parts} parts")
-    filters = [[p * k + m for m in range(k)] for p in range(parts)]
-    return parts * k, [_tree(parents, filters, parts * k, k, what)]
+            if not isinstance(t, dict) or not {"parents", "filters"} <= set(t) <= \
+                    {"parents", "filters", "ds"}:
+                raise SpecError(f"{what}: tree {c} must have the keys parents and filters, "
+                                "and may have ds")
+            out.append(_tree(t["parents"], t["filters"], t.get("ds"), pool, k,
+                             f"{what}: tree {c}"))
+    else:
+        parts = _count(cfg.get("parts"), f"{what}: parts")
+        if cfg.get("components", 1) != 1:
+            raise SpecError(f"{what}: the one-tree form has one component; give trees for more")
+        parents = cfg.get("parents")
+        if not isinstance(parents, list) or len(parents) != parts:
+            raise SpecError(f"{what}: parents must list the {parts} parts")
+        filters = [[p * k + m for m in range(k)] for p in range(parts)]
+        pool = parts * k
+        out = [_tree(parents, filters, cfg.get("ds"), pool, k, what)]
+    _maxsize(cfg, _sizes(cfg, pool, what), what)
+    return pool, out
+
+
+def filter_sizes(cfg: dict) -> List[Tuple[int, int]]:
+    """(fh, fw) of each pool filter, in pool order."""
+    return _sizes(cfg, trees(cfg)[0], f"config {cfg.get('name')}")
+
+
+def maxsize(cfg: dict) -> Tuple[int, int]:
+    """(h, w) that the pyramid pads by (featpyramid.m: maxsize - 2)."""
+    return _maxsize(cfg, filter_sizes(cfg), f"config {cfg.get('name')}")
 
 
 @dataclasses.dataclass(frozen=True)

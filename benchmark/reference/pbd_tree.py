@@ -15,13 +15,15 @@ of the program it judges.
          strongest colour channel and the orientation choice in float32,
          the precision the f32 profile states), padded by (pad+1) cells
          with the occlusion channel set to 1 on the pad frame
-      -> valid correlation with every filter of the pool, once a level
-         (float64)
-      -> tree DP per level and component, on the responses of the
-         filters that the component's parts name: for each part from
-         the leaves up, the generalized distance transform of each of
-         its mixtures by brute force (every source cell against every
-         output cell, first maximum wins), then the max over the child's
+      -> valid correlation with every filter of the pool at its own
+         size, once a level (float64); a level's maps share the grid of
+         its smallest filter, each -inf beyond its own valid extent
+      -> tree DP per root level and component, on the responses of the
+         filters that the component's parts name, each part on its own
+         level: for each part from the leaves up, the generalized
+         distance transform of each of its mixtures by brute force
+         (every source cell against every output cell, first maximum
+         wins) onto its parent's grid, then the max over the child's
          mixtures with the (parent mixture, child mixture) bias table
          (`root_scores`; `component_root_scores` runs the parts of every
          component at one depth together, to the same bits)
@@ -36,8 +38,14 @@ placements of one component (a root cell, every part's cell and mixture)
 by the same terms, so that a detector's claimed parts can be scored
 without retracing its own argmax choices.
 
-Octave-offset parts (an anchor ds > 0, a part read from a finer octave)
-are not modelled: every part here lies on its parent's level.
+Octave-offset parts follow detect_fast.m:93-105: a part whose octave
+offsets down the tree add up to d reads level l - d * interval at root
+level l; its distance transform runs on that finer grid and samples it
+with step 2^ds (its own offset) onto its parent's grid, which starts
+(2^ds - 1) * pad cells in (the virtual padding of the finer octave).
+A root level with no level d * interval below it, for a component's
+largest d, carries no root of that component (-inf), as the finer
+level does not exist.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,34 +225,50 @@ class Tree:
     mixtures; filterid[p, k] the pool filter of part p's mixture k;
     defs[p, k] = (ax, bx, ay, by) positive quadratic costs, anchors[p, k]
     = (dx, dy) cell offsets from the parent, bias[p, l, k] the bias of
-    mixture k under parent mixture l (the root's in bias[0, 0])."""
+    mixture k under parent mixture l (the root's in bias[0, 0]); ds[p]
+    = 1 where part p lies one octave finer than its parent (None: every
+    part on its parent's level)."""
 
     parent: List[int]
     filterid: torch.Tensor  # (P, K) int64
     defs: torch.Tensor  # (P, K, 4)
     anchors: torch.Tensor  # (P, K, 2) int64
     bias: torch.Tensor  # (P, K, K); the root's (1, K) table in bias[0, :1]
+    ds: Optional[torch.Tensor] = None  # (P,) int64
+
+    def octaves(self) -> List[int]:
+        """Each part's octaves below the root: the ds on its path up,
+        summed."""
+        ds = self.ds.tolist() if self.ds is not None else [0] * len(self.parent)
+        out = [0] * len(ds)
+        for p in range(1, len(ds)):
+            out[p] = out[self.parent[p]] + ds[p]
+        return out
 
 
 @dataclasses.dataclass
 class Model:
-    """A pool of filters and the trees (components) that index it."""
+    """A pool of filters and the trees (components) that index it:
+    filter f is filters[f, :fh, :fw] for (fh, fw) = sizes[f] (None: the
+    bank's size), and the pyramid pads by maxsize (None: the bank's)."""
 
-    filters: torch.Tensor  # (F, fh, fw, 32)
+    filters: torch.Tensor  # (F, fh_max, fw_max, 32)
     trees: List[Tree]
     interval: int
     sbin: int
     thresh: float
+    sizes: Optional[torch.Tensor] = None  # (F, 2) int64 as (fh, fw)
+    maxsize: Optional[Tuple[int, int]] = None
 
     @property
     def pad(self):
-        """(pady, padx) = filter size - 2 (featpyramid.m:11-12)."""
-        fh, fw = self.filters.shape[1:3]
+        """(pady, padx) = maxsize - 2 (featpyramid.m:11-12)."""
+        fh, fw = self.maxsize if self.maxsize is not None else self.filters.shape[1:3]
         return max(fh - 2, 0), max(fw - 2, 0)
 
     @functools.cached_property
     def forest(self) -> "Forest":
-        return Forest.of(self.trees)
+        return Forest.of(self.trees, self.pad)
 
 
 @dataclasses.dataclass
@@ -253,22 +277,28 @@ class Forest:
     order, and the DP's schedule over them: the depths from the deepest
     up, each the nodes at that depth and the rounds in which they pass
     their messages up, round r taking each parent's r-th child in
-    descending part order (each parent once a round)."""
+    descending part order (each parent once a round). Each node's DT
+    starts at shift = anchor - (step - 1) * pad on its source grid and
+    samples it with its step, 2^ds; it reads the level ds_total octaves
+    below its root's."""
 
     filterid: torch.Tensor  # (N, K)
     defs: torch.Tensor  # (N, K, 4)
-    anchors: torch.Tensor  # (N, K, 2)
+    shift: torch.Tensor  # (N, K, 2) as (x, y)
+    step: torch.Tensor  # (N,) int64
+    ds_total: List[int]
     bias: torch.Tensor  # (N, K, K)
     roots: torch.Tensor  # (C,) each tree's root node
     steps: List[Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]]
 
     @staticmethod
-    def of(trees: List[Tree]) -> "Forest":
+    def of(trees: List[Tree], pad: Tuple[int, int]) -> "Forest":
         dev = trees[0].defs.device
-        up, depth, roots = [], [], []
+        up, depth, roots, ds_total = [], [], [], []
         for t in trees:
             base = len(up)
             roots.append(base)
+            ds_total += t.octaves()
             for p, q in enumerate(t.parent):
                 up.append(base + q)
                 depth.append(depth[base + q] + 1 if p else 0)
@@ -286,8 +316,10 @@ class Forest:
                 rounds[r][1].append(up[n])
             steps.append((ix(nodes), [(ix(a), ix(b)) for a, b in rounds]))
         cat = lambda name: torch.cat([getattr(t, name) for t in trees])
-        return Forest(cat("filterid"), cat("defs"), cat("anchors"), cat("bias"), ix(roots),
-                      steps)
+        step = ix([1 << (ds_total[n] - ds_total[up[n]]) for n in range(len(up))])
+        virtual = (step - 1)[:, None, None] * ix([pad[1], pad[0]])
+        return Forest(cat("filterid"), cat("defs"), cat("anchors") - virtual, step, ds_total,
+                      cat("bias"), ix(roots), steps)
 
 
 def pyramid(frame: torch.Tensor, model: Model):
@@ -327,31 +359,46 @@ def pyramid(frame: torch.Tensor, model: Model):
 # ---------------------------------------------------------------------------
 
 
-def responses(feat: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
-    """Valid correlation of (Hp, Wp, 32) features with (N, fh, fw, 32)
-    filters -> (N, Hp-fh+1, Wp-fw+1), float64 (fconv.cc)."""
+def responses(feat: torch.Tensor, filters: torch.Tensor,
+              sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Valid correlation of (Hp, Wp, 32) features with each of the
+    (N, fh_max, fw_max, 32) filters at its own size, sizes (N, 2) (None:
+    the bank's) -> (N, Hp-fh_min+1, Wp-fw_min+1), float64, -inf beyond
+    each filter's own (Hp-fh+1, Wp-fw+1) (fconv.cc)."""
     x = feat.permute(2, 0, 1)[None].to(F64)
     k = filters.permute(0, 3, 1, 2).to(F64)
-    return F.conv2d(x, k)[0]
+    own = [tuple(size) for size in sizes.tolist()] if sizes is not None else []
+    groups = dict.fromkeys(own)
+    if len(groups) <= 1:
+        return F.conv2d(x, k)[0]
+    hp, wp = feat.shape[:2]
+    out = torch.full((len(k), hp - min(h for h, _ in groups) + 1,
+                      wp - min(w for _, w in groups) + 1), -math.inf, dtype=F64,
+                     device=feat.device)
+    for fh, fw in groups:
+        rows = [f for f, size in enumerate(own) if size == (fh, fw)]
+        out[rows, : hp - fh + 1, : wp - fw + 1] = F.conv2d(x, k[rows, :, :fh, :fw])[0]
+    return out
 
 
 def distance_transform(src: torch.Tensor, defs: torch.Tensor, shift: torch.Tensor,
-                       out_h: int, out_w: int):
+                       out_h: int, out_w: int, step: Optional[torch.Tensor] = None):
     """out[k, y, x] = max over (v, u) of src[k, v, u] - ay*dy^2 - by*dy
-    - ax*dx^2 - bx*dx, dy = shift_y + y - v, dx = shift_x + x - u, for
-    y < out_h, x < out_w (the parent's grid), by brute force: the y pass,
-    then the x pass on its output (shiftdt.cc). src (K, H, W) float64,
-    defs (K, 4), shift (K, 2) as (x, y)."""
+    - ax*dx^2 - bx*dx, dy = shift_y + step*y - v, dx = shift_x + step*x
+    - u, for y < out_h, x < out_w (the parent's grid), by brute force:
+    the y pass, then the x pass on its output (shiftdt.cc). src (K, H, W)
+    float64, defs (K, 4), shift (K, 2) as (x, y), step (K,) (None: 1)."""
     _, h, w = src.shape
     dev = src.device
     ax, bx, ay, by = (defs[:, i].to(F64)[:, None, None] for i in range(4))
+    step = step[:, None, None] if step is not None else 1
     # y pass: (K, y_out, v)
-    d = (shift[:, 1, None, None] + torch.arange(out_h, device=dev)[None, :, None]
+    d = (shift[:, 1, None, None] + step * torch.arange(out_h, device=dev)[None, :, None]
          - torch.arange(h, device=dev)[None, None, :]).to(F64)
     cost = ay * d * d + by * d
     tmp = (src[:, None, :, :] - cost[..., None]).amax(dim=2)  # (K, y, W)
     # x pass: (K, x_out, u)
-    d = (shift[:, 0, None, None] + torch.arange(out_w, device=dev)[None, :, None]
+    d = (shift[:, 0, None, None] + step * torch.arange(out_w, device=dev)[None, :, None]
          - torch.arange(w, device=dev)[None, None, :]).to(F64)
     cost = ax * d * d + bx * d
     return (tmp[:, :, None, :] - cost[:, None, :, :]).amax(dim=3)
@@ -361,7 +408,8 @@ def root_scores(resp: torch.Tensor, tree: Tree) -> torch.Tensor:
     """The tree DP over one level's (P*K, Hr, Wr) responses of one tree's
     parts, part p's mixture k at p*K + k, part by part: the best score of
     a placement at every root cell, (Hr, Wr). The plain form of
-    component_root_scores, which tests hold it to."""
+    component_root_scores for a tree of parts on their parents' levels
+    (ds = 0), which tests hold it to."""
     nparts = len(tree.parent)
     k = tree.defs.shape[1]
     score = [resp[p * k : (p + 1) * k].clone() for p in range(nparts)]
@@ -376,31 +424,47 @@ def root_scores(resp: torch.Tensor, tree: Tree) -> torch.Tensor:
     return rootsc.amax(dim=0)
 
 
-def component_root_scores(resp: torch.Tensor, model: Model) -> torch.Tensor:
-    """Every component's DP over one level's (F, Hr, Wr) pool responses,
-    each on the responses its parts index: (C, Hr, Wr). root_scores' terms
-    in its order, over the parts of every tree at once: the nodes of one
-    depth, deepest first, go through the distance transform together (in
-    calls of DT_MAPS maps), and each parent adds its children's messages
-    in descending part order, so that each component's map is the one
-    root_scores gives on that component alone, to the bit."""
+def component_root_scores(resps: List[torch.Tensor], level: int, model: Model) -> torch.Tensor:
+    """Every component's DP at root level `level`, over every level's
+    (F, Hr, Wr) pool responses, each tree on the responses its parts
+    index, each part on its own level: (C, Hr, Wr) on the root level's
+    grid. root_scores' terms in its order, over the parts of every tree
+    at once: the nodes of one depth, deepest first, go through the
+    distance transform together (in calls of DT_MAPS maps), and each
+    parent adds its children's messages in descending part order, so
+    that each component's map is the one root_scores gives on that
+    component alone, to the bit. The maps of one root level share the
+    largest grid of the levels its parts read, -inf beyond each map's
+    own; a part whose level does not exist reads -inf, so its tree has
+    no root there."""
     fo = model.forest
     k = fo.defs.shape[1]
-    h, w = resp.shape[1:]
-    score = resp[fo.filterid.reshape(-1)].reshape(-1, k, h, w)
+    reads = [level - d * model.interval for d in fo.ds_total]
+    used = sorted({lv for lv in reads if lv >= 0})
+    h = max(resps[lv].shape[1] for lv in used)
+    w = max(resps[lv].shape[2] for lv in used)
+    own = resps[level]
+    score = torch.full((len(reads), k, h, w), -math.inf, dtype=own.dtype, device=own.device)
+    for lv in used:
+        nodes = [n for n, r in enumerate(reads) if r == lv]
+        r = resps[lv]
+        score[nodes, :, : r.shape[1], : r.shape[2]] = \
+            r[fo.filterid[nodes].reshape(-1)].reshape(len(nodes), k, *r.shape[1:])
     for nodes, rounds in fo.steps:
         src = score[nodes].reshape(-1, h, w)
         defs = fo.defs[nodes].reshape(-1, 4)
-        shift = fo.anchors[nodes].reshape(-1, 2)
+        shift = fo.shift[nodes].reshape(-1, 2)
+        step = fo.step[nodes].repeat_interleave(k)
         msg0 = torch.cat([distance_transform(src[i : i + DT_MAPS], defs[i : i + DT_MAPS],
-                                             shift[i : i + DT_MAPS], h, w)
+                                             shift[i : i + DT_MAPS], h, w,
+                                             step[i : i + DT_MAPS])
                           for i in range(0, src.shape[0], DT_MAPS)]).reshape(-1, k, h, w)
         # (n, L, K, H, W): parent mixture l takes its best child mixture
         msg = (msg0[:, None] + fo.bias[nodes].to(F64)[..., None, None]).amax(dim=2)
         for rows, parents in rounds:
             score[parents] = score[parents] + msg[rows]
     rootsc = score[fo.roots] + fo.bias[fo.roots, 0].to(F64)[..., None, None]
-    return rootsc.amax(dim=1)
+    return rootsc.amax(dim=1)[:, : own.shape[1], : own.shape[2]]
 
 
 @dataclasses.dataclass
@@ -428,11 +492,8 @@ def _flat(maps: List[torch.Tensor]):
 
 def detect(frame: torch.Tensor, model: Model) -> Detection:
     feats, scales = pyramid(frame, model)
-    resp, root = [], []
-    for f in feats:
-        r = responses(f, model.filters)
-        resp.append(r)
-        root.append(component_root_scores(r, model))
+    resp = [responses(f, model.filters, model.sizes) for f in feats]
+    root = [component_root_scores(resp, level, model) for level in range(len(resp))]
     grid = torch.tensor([r.shape[1:] for r in root], device=frame.device)
     resp, resp_off = _flat(resp)
     root, root_off = _flat(root)
@@ -442,10 +503,11 @@ def detect(frame: torch.Tensor, model: Model) -> Detection:
 
 
 def _gather(flat, off, grid, level, planes, ys, xs):
-    """flat[level's map][plane, y, x], -inf off the level's grid."""
-    h, w = grid[level, 0, None], grid[level, 1, None]
+    """flat[level's map][plane, y, x], -inf off the level's grid; level
+    as ys and xs, or broadcast to them."""
+    h, w = grid[level, 0], grid[level, 1]
     inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
-    idx = off[level, None] + (planes * h + ys.clamp(min=0).minimum(h - 1)) * w \
+    idx = off[level] + (planes * h + ys.clamp(min=0).minimum(h - 1)) * w \
         + xs.clamp(min=0).minimum(w - 1)
     val = flat[idx]
     return torch.where(inside, val, torch.full_like(val, -math.inf))
@@ -455,9 +517,11 @@ def placement_score(det: Detection, model: Model, c: int, level: torch.Tensor,
                     xs: torch.Tensor, ys: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     """The score of N placements of component c by the DP's terms: every
     part's response at its cell and mixture, less its deformation from
-    its parent's cell, plus the bias of its (parent mixture, mixture) and
-    the root's bias. level (N,), xs, ys, mix (N, P_c) int64 on each
-    placement's level grid. Cells outside the grid score -inf."""
+    the cell its DT reads for its parent's cell (anchor - (step - 1) *
+    pad + step * the parent's cell, step 2^ds), plus the bias of its
+    (parent mixture, mixture) and the root's bias. level, xs, ys, mix
+    (N, P_c) int64: each part's level, and its cell on that level's
+    grid. Cells outside the grid score -inf."""
     tree = model.trees[c]
     nparts = xs.shape[1]
     dev = xs.device
@@ -469,8 +533,10 @@ def placement_score(det: Detection, model: Model, c: int, level: torch.Tensor,
     ch = torch.arange(1, nparts, device=dev)[None, :]
     m = mix[:, 1:]
     a = tree.anchors[ch, m]
-    dx = (a[..., 0] + xs[:, par] - xs[:, 1:]).to(F64)
-    dy = (a[..., 1] + ys[:, par] - ys[:, 1:]).to(F64)
+    step = 1 << (tree.ds[1:] if tree.ds is not None else torch.zeros_like(par)).to(dev)
+    pady, padx = model.pad
+    dx = (a[..., 0] - (step - 1) * padx + step * xs[:, par] - xs[:, 1:]).to(F64)
+    dy = (a[..., 1] - (step - 1) * pady + step * ys[:, par] - ys[:, 1:]).to(F64)
     ax, bx, ay, by = tree.defs[ch, m].to(F64).unbind(-1)
     total = total - (ax * dx * dx + bx * dx + ay * dy * dy + by * dy).sum(1)
     return total + bias[ch, mix[:, par], m].sum(1)
@@ -481,8 +547,8 @@ def root_score_at(det: Detection, c: int, level: torch.Tensor, x: torch.Tensor,
     """The reference's best score of component c at root cells (x, y) of
     their levels; -inf outside the grid."""
     plane = torch.full_like(x, c)
-    return _gather(det.root, det.root_off, det.grid, level, plane[:, None], y[:, None],
-                   x[:, None])[:, 0]
+    return _gather(det.root, det.root_off, det.grid, level[:, None], plane[:, None],
+                   y[:, None], x[:, None])[:, 0]
 
 
 def model_from_arrays(arrays: Dict[str, object], interval: int, sbin: int,
@@ -496,6 +562,7 @@ def model_from_arrays(arrays: Dict[str, object], interval: int, sbin: int,
                 raise ValueError(f"component {c}, part {p}: parent {q} must come before it")
         trees.append(Tree(parent=parent, filterid=t["filterid"].to(torch.int64),
                           defs=t["defs"], anchors=t["anchors"].to(torch.int64),
-                          bias=t["bias"]))
+                          bias=t["bias"], ds=t["ds"].to(torch.int64)))
     return Model(filters=arrays["filters"], trees=trees, interval=int(interval),
-                 sbin=int(sbin), thresh=float(thresh))
+                 sbin=int(sbin), thresh=float(thresh), sizes=arrays["sizes"],
+                 maxsize=tuple(arrays["maxsize"]))

@@ -6,6 +6,7 @@ and units outside the rules are refused."""
 from __future__ import annotations
 
 import json
+import re
 import shutil
 from pathlib import Path
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from benchmark.lib import cell, spec, traffic
+from benchmark.tests import _small
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -176,3 +178,65 @@ def test_the_committed_benchmark_keeps_the_contracts_limits():
             assert m.moves in e2e and all(m2.applies(c) for c in (m.workloads or ())
                                           for m2 in [e2e[m.moves]])
     assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def _sized(change: str) -> dict:
+    """A configuration with one of the keys filter_sizes, ds or maxsize
+    malformed: STAR2's (the several-tree form) or person26's (one tree)."""
+    if change.startswith("one_tree"):
+        cfg = {**spec.load().config("person26"), "name": "one26", "ds": [0] * 26,
+               "filter_sizes": [[5, 5]] * 156}
+    else:
+        cfg = _small.star2_config()
+    trees = cfg.get("trees")
+    if change == "ds_on_root":
+        trees[0]["ds"][0] = 1
+    elif change == "ds_of_two":
+        trees[1]["ds"][3] = 2
+    elif change == "ds_negative":
+        trees[0]["ds"][2] = -1
+    elif change == "ds_not_a_number":
+        trees[0]["ds"][4] = "1"
+    elif change == "ds_true":
+        trees[1]["ds"][1] = True
+    elif change == "ds_short":
+        trees[1]["ds"].pop()
+    elif change == "ds_beside_trees":
+        cfg["ds"] = [0, 1, 1, 1, 1, 0]
+    elif change == "sizes_short":
+        cfg["filter_sizes"].pop()
+    elif change == "sizes_long":
+        cfg["filter_sizes"].append([3, 3])
+    elif change == "size_zero":
+        cfg["filter_sizes"][5] = [0, 3]
+    elif change == "size_of_three":
+        cfg["filter_sizes"][2] = [3, 3, 3]
+    elif change == "size_fraction":
+        cfg["filter_sizes"][7] = [3, 2.5]
+    elif change == "maxsize_zero":
+        cfg["maxsize"] = [6, 0]
+    elif change == "maxsize_one_number":
+        cfg["maxsize"] = 6
+    elif change == "one_tree_ds_on_root":
+        cfg["ds"][0] = 1
+    elif change == "one_tree_ds_of_two":
+        cfg["ds"][17] = 2
+    elif change == "one_tree_sizes_short":
+        cfg["filter_sizes"].pop()
+    return cfg
+
+
+@pytest.mark.parametrize("change,names", [
+    ("ds_on_root", "tree 0: part 0"), ("ds_of_two", "tree 1: part 3"),
+    ("ds_negative", "tree 0: part 2"), ("ds_not_a_number", "tree 0: part 4"),
+    ("ds_true", "tree 1: part 1"), ("ds_short", "tree 1: ds"), ("ds_beside_trees", "'ds'"),
+    ("sizes_short", "filter_sizes"), ("sizes_long", "filter_sizes"),
+    ("size_zero", "filter 5"), ("size_of_three", "filter 2"), ("size_fraction", "filter 7"),
+    ("maxsize_zero", "maxsize"), ("maxsize_one_number", "maxsize"),
+    ("one_tree_ds_on_root", "part 0"), ("one_tree_ds_of_two", "part 17"),
+    ("one_tree_sizes_short", "filter_sizes")])
+def test_a_malformed_size_or_octave_is_refused(tmp_path, change, names):
+    """Each new key, malformed, is refused when the benchmark is loaded,
+    by a SpecError that names the part, filter or key at fault."""
+    with pytest.raises(spec.SpecError, match=re.escape(names)):
+        _small.add_config(tmp_path, _sized(change), traffics=("frame",))

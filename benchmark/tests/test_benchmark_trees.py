@@ -175,4 +175,6 @@ def test_a_malformed_one_tree_file_is_refused(change):
 def test_the_components_count_as_written():
     cfg = {**_small.trees3_config(), "components": 3}
     pool, trees = spec.trees(cfg)
-    assert pool == 9 and trees == _small.TREES3["trees"]
+    # every part on its parent's level where a tree gives no ds
+    assert pool == 9 and trees == [{**t, "ds": [0] * len(t["parents"])}
+                                   for t in _small.TREES3["trees"]]

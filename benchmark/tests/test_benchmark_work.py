@@ -97,3 +97,37 @@ def test_several_trees_count_the_pool_and_every_trees_children():
         for n in [39] * 3 + [68] * 7 + [39] * 3]}
     assert work.n_filters(share) == 146
     assert work.dt_children(share) == 7 * 67 + 6 * 38
+
+
+def test_a_two_resolution_stars_figures_by_hand():
+    """STAR2 (two roots of 6x4 and 4x6, each with four 3x3 parts one
+    octave finer and a 3x3 grandchild on its parent's finer level) at
+    480x640: the levels pad by maxsize (6, 6); K2 takes each filter once
+    a level at its own size; the DTs run at root levels 10 and up, where
+    a level an octave finer exists, each child map on its own level's
+    grid and its parent's."""
+    cfg = _small.star2_config()
+    lv = work.levels(cfg)
+    n, i = len(lv), cfg["interval"]
+    assert n == 46 and lv[0] == (120 - 2 + 2 * 5, 160 - 2 + 2 * 5)
+    grid = lambda level, fh, fw: (lv[level][0] - fh + 1, lv[level][1] - fw + 1)
+    cells = lambda fh, fw: sum(h * w for h, w in (grid(level, fh, fw) for level in range(n)))
+    k2 = 2 * 32 * (6 * 4 * cells(6, 4) + 4 * 6 * cells(4, 6) + 10 * 3 * 3 * cells(3, 3))
+    assert work.conv_work(cfg)[0] == k2
+    assert work.dt_children(cfg) == 10
+
+    def tree(rh, rw):
+        """(sources, y-pass outputs, x-pass outputs) of one tree's maps."""
+        src = mid = out = 0
+        for level in range(i, n):
+            hc, wc = grid(level - i, 3, 3)  # every child's map, an octave finer
+            hr, wr = grid(level, rh, rw)  # the root's map
+            src += 4 * hc * wc + hc * wc
+            mid += 4 * hr * wc + hc * wc
+            out += 4 * hr * wr + hc * wc
+        return src, mid, out
+
+    src, mid, out = (a + b for a, b in zip(tree(6, 4), tree(4, 6)))
+    assert work.dt_bytes(cfg) == 4 * src + 16 * mid + 8 * out
+    assert work.dt_bytes(cfg, 8) == 8 * (4 * src + 16 * mid + 8 * out)
+    assert work.model_flops(cfg) == k2 + 10 * (src + mid) + 5 * (mid + out)
