@@ -21,7 +21,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from . import compare, inputs, loop, port
+from . import compare, inputs, loop, port, spec
 
 KEYS = {"pool", "compare_frames", "warm_requests"}
 
@@ -69,7 +69,8 @@ class Client(loop.ClosedLoop):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg = self.cfg
-        model = ref.model_from_arrays(self.arrays, cfg["interval"], cfg["sbin"], cfg["thresh"])
+        model = ref.model_from_arrays(self.arrays, cfg["interval"], cfg["sbin"], cfg["thresh"],
+                                      pyramid=spec.pyramid(cfg))
         out = []
         with torch.no_grad():
             for j in sample:

@@ -10,11 +10,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import spec
+
 
 def model(cfg: dict, arrays: dict):
     """The program's `Model` of the generated arrays: each pool filter at
     its own size, each anchor with its part's ds, the configuration's
-    padding size."""
+    padding size.
+
+    A configuration whose pyramid is other than "pose", the form every
+    configuration meant before the key (lib/spec.py), passes it on as
+    `Model(pyramid=...)`: the program's `Model` takes `pyramid`, "pose"
+    or "dpm", with the reference's meaning (reference/pbd_tree.py). A
+    program without that field fails at this call, loudly, rather than
+    running the pose form under another name. A "pose" configuration
+    makes the call it made before the key."""
     from partsbaseddetector_tpu_torch.models.model import Model
 
     bank = arrays["filters"].cpu().numpy()
@@ -44,13 +54,14 @@ def model(cfg: dict, arrays: dict):
         defid.append([base + np.arange(p * k_, (p + 1) * k_, dtype=np.int32)
                       for p in range(p_)])
         biasid.append(ids)
+    form = spec.pyramid(cfg)
     return Model(
         name=cfg["name"], interval=cfg["interval"], sbin=cfg["sbin"], thresh=cfg["thresh"],
         filters=[np.ascontiguousarray(f[:h, :w]) for f, (h, w) in zip(bank, sizes)],
         defs=defs, anchors=anchors,
         biases=np.concatenate(tables).astype(np.float32),
         parentid=parentid, filterid=filterid, defid=defid, biasid=biasid,
-        maxsize=tuple(arrays["maxsize"]),
+        maxsize=tuple(arrays["maxsize"]), **({"pyramid": form} if form != "pose" else {}),
     )
 
 

@@ -23,7 +23,7 @@ A configuration's file gives its model in one of two forms (`trees`):
                    K indices into the pool of F filters}; components may
                    differ in size and depth and share filters
 
-Parts are root first (parents[0] == 0, parents[p] < p). Three optional
+Parts are root first (parents[0] == 0, parents[p] < p). Four optional
 keys widen either form; absent, each means what the line says:
 
     filter_sizes   one [fh, fw] per pool filter (absent: every filter is
@@ -37,6 +37,15 @@ keys widen either form; absent, each means what the line says:
                    code's model.maxsize (absent: the largest filter
                    height and width, so filter_h x filter_w where every
                    filter has that size)
+    pyramid        "pose" or "dpm", the feature pyramid's form (absent:
+                   "pose"): "pose" the pose and face releases'
+                   featpyramid.m, every level at sbin, an octave a
+                   binomial reduce of the one above; "dpm" voc-release4's
+                   featpyramid.m, an octave of HOG at sbin / 2 on the
+                   first octave's images before those levels, and each
+                   later octave an area resize by 0.5. "dpm" needs an
+                   even sbin of at least 4 and a part at ds = 1 in every
+                   tree, so that no root lies on the half-cell octave
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
             "per_layer"}
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+PYRAMIDS = {"pose", "dpm"}
 
 
 class SpecError(ValueError):
@@ -179,7 +189,24 @@ def trees(cfg: dict) -> Tuple[int, List[dict]]:
         pool = parts * k
         out = [_tree(parents, filters, cfg.get("ds"), pool, k, what)]
     _maxsize(cfg, _sizes(cfg, pool, what), what)
+    _pyramid(cfg, out, what)
     return pool, out
+
+
+def _pyramid(cfg: dict, trees: List[dict], what: str) -> str:
+    form = cfg.get("pyramid", "pose")
+    if not isinstance(form, str) or form not in PYRAMIDS:
+        raise SpecError(f"{what}: pyramid {form!r} is not one of {sorted(PYRAMIDS)}")
+    if form == "dpm":
+        sbin = cfg.get("sbin")
+        if not _whole(sbin) or sbin % 2 or sbin < 4:
+            raise SpecError(f"{what}: pyramid 'dpm' needs an even sbin of at least 4 (its "
+                            f"half-cell octave takes cells of sbin / 2), not {sbin!r}")
+        for c, t in enumerate(trees):
+            if 1 not in t["ds"]:
+                raise SpecError(f"{what}: pyramid 'dpm': tree {c} has no part at ds = 1, so "
+                                "its roots would lie on the half-cell octave")
+    return form
 
 
 def filter_sizes(cfg: dict) -> List[Tuple[int, int]]:
@@ -190,6 +217,11 @@ def filter_sizes(cfg: dict) -> List[Tuple[int, int]]:
 def maxsize(cfg: dict) -> Tuple[int, int]:
     """(h, w) that the pyramid pads by (featpyramid.m: maxsize - 2)."""
     return _maxsize(cfg, filter_sizes(cfg), f"config {cfg.get('name')}")
+
+
+def pyramid(cfg: dict) -> str:
+    """The feature pyramid's form, "pose" or "dpm" (above)."""
+    return _pyramid(cfg, trees(cfg)[1], f"config {cfg.get('name')}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,10 +10,14 @@ its rate is 495 / 3 = 165 TFLOP/s. A card set below 700 W runs slower;
 the run reports the card's power limit beside its numbers.
 
 Pyramid levels follow featpyramid.m's sizes (C rounding), as
-pbd_tree.pyramid builds them, padded by the configuration's maxsize; a
-filter's responses on a level cover the padded features less the
-filter plus one. The work is that of the levels and the filters at
-their own sizes, whatever stacks an implementation pads them into:
+pbd_tree.pyramid builds them in the configuration's form (lib/spec.py's
+`pyramid`: the "dpm" form puts an octave of HOG at sbin / 2 on the
+first octave's images before the "pose" form's levels, and its later
+octaves' area resizes by 0.5 round as the reduces do), padded by the
+configuration's maxsize; a filter's responses on a level cover the
+padded features less the filter plus one. The work is that of the
+levels and the filters at their own sizes, whatever stacks an
+implementation pads them into:
 `conv_work_padded` counts the bucket stacks that the program's batched
 correlation reads (`interval / buckets_per_octave` consecutive levels
 padded to the largest of them plus the bank less one, every filter at
@@ -72,12 +76,17 @@ def levels(cfg: dict) -> List[Tuple[int, int]]:
             ph, pw = sizes[j - interval]
             sizes[j] = (cround(ph * 0.5), cround(pw * 0.5))
             j += interval
+    bins = [sbin] * len(sizes)
+    if spec.pyramid(cfg) == "dpm":
+        half = [(cround(h * (1.0 / sc**i)), cround(w * (1.0 / sc**i)))
+                for i in range(min(interval, n + interval))]
+        sizes, bins = half + sizes, [sbin // 2] * len(half) + bins
     my, mx = spec.maxsize(cfg)
     pady, padx = max(my - 2, 0), max(mx - 2, 0)
     out = []
-    for ih, iw in sizes:
-        fh = max(cround(ih / sbin) - 2, 0)
-        fw = max(cround(iw / sbin) - 2, 0)
+    for (ih, iw), cell in zip(sizes, bins):
+        fh = max(cround(ih / cell) - 2, 0)
+        fw = max(cround(iw / cell) - 2, 0)
         out.append((fh + 2 * (pady + 1), fw + 2 * (padx + 1)))
     return out
 

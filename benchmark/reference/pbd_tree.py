@@ -10,7 +10,8 @@ of the program it judges.
     frame (H, W, 3) uint8
       -> image pyramid: `interval` area resizes of the frame per octave,
          then repeated half-size binomial reduces, each level rounded to
-         float32 once (the resampling sums in float64)
+         float32 once (the resampling sums in float64); the model's
+         `pyramid` names the form (below)
       -> 32-channel HOG per level (float64 histograms; the gradient, the
          strongest colour channel and the orientation choice in float32,
          the precision the f32 profile states), padded by (pad+1) cells
@@ -46,6 +47,28 @@ with step 2^ds (its own offset) onto its parent's grid, which starts
 A root level with no level d * interval below it, for a component's
 largest d, carries no root of that component (-inf), as the finer
 level does not exist.
+
+The pyramid takes one of two forms (`Model.pyramid`):
+
+    "pose"  the pose and face releases' featpyramid.m
+            (pose-release-ver1.3, face-release1.0-basic): 1 + floor(
+            log(min(H, W) / (5 sbin)) / log(sc)) levels, sc = 2^(1 /
+            interval), all at sbin: level i < interval is
+            hog(resize(frame, 1 / sc^i), sbin) at sbin sc^i pixels a
+            cell, and each later octave a reduce of the level an octave
+            above, at twice its scale
+    "dpm"   voc-release4's featpyramid.m (Felzenszwalb, Girshick,
+            McAllester, Ramanan): interval more levels, an octave of HOG
+            at sbin / 2 first: level i < interval is hog(resize(frame, 1
+            / sc^i), sbin / 2) at (sbin / 2) sc^i pixels a cell, level i
+            + interval is hog of the same image at sbin, at sbin sc^i,
+            and each later octave hog at sbin of resize(., 0.5) of the
+            image an octave above, at twice its scale. With its parts at
+            ds = 1 a root lies on levels interval and up (detect.m), its
+            parts on the half-cell octave below
+
+In both the frame itself is level 0's image (a resize at scale 1 is
+skipped), and every level is padded alike.
 """
 
 from __future__ import annotations
@@ -246,11 +269,15 @@ class Tree:
         return out
 
 
+PYRAMIDS = ("pose", "dpm")
+
+
 @dataclasses.dataclass
 class Model:
     """A pool of filters and the trees (components) that index it:
     filter f is filters[f, :fh, :fw] for (fh, fw) = sizes[f] (None: the
-    bank's size), and the pyramid pads by maxsize (None: the bank's)."""
+    bank's size), the pyramid pads by maxsize (None: the bank's) and
+    takes the form `pyramid` (the module's docstring)."""
 
     filters: torch.Tensor  # (F, fh_max, fw_max, 32)
     trees: List[Tree]
@@ -259,6 +286,11 @@ class Model:
     thresh: float
     sizes: Optional[torch.Tensor] = None  # (F, 2) int64 as (fh, fw)
     maxsize: Optional[Tuple[int, int]] = None
+    pyramid: str = "pose"
+
+    def __post_init__(self):
+        if self.pyramid not in PYRAMIDS:
+            raise ValueError(f"pyramid {self.pyramid!r} is not one of {PYRAMIDS}")
 
     @property
     def pad(self):
@@ -324,11 +356,14 @@ class Forest:
 
 def pyramid(frame: torch.Tensor, model: Model):
     """Padded features and box scales of every level of a (H, W, 3)
-    uint8 frame."""
+    uint8 frame, in the model's form."""
     im = frame.to(torch.float32)
     h, w = im.shape[:2]
     sc = 2.0 ** (1.0 / model.interval)
     n = 1 + int(math.floor(math.log(min(h, w) / (5.0 * model.sbin)) / math.log(sc)))
+    if model.pyramid == "dpm":
+        feats, scales = _dpm_levels(im, model, sc, n)
+        return _padded(feats, model), scales
     feats: List[torch.Tensor] = [None] * n
     scales = [0.0] * n
     for i in range(min(model.interval, n)):
@@ -341,6 +376,38 @@ def pyramid(frame: torch.Tensor, model: Model):
             feats[j] = hog(scaled, model.sbin)
             scales[j] = 2.0 * scales[j - model.interval]
             j += model.interval
+    return _padded(feats, model), scales
+
+
+def _dpm_levels(im: torch.Tensor, model: Model, sc: float, n: int):
+    """Unpadded features and box scales of voc-release4's n + interval
+    levels (featpyramid.m): phase i's image at sbin / 2 (level i) and at
+    sbin (level i + interval), then at sbin after each area resize by
+    0.5 (an octave further down each time)."""
+    interval, sbin = model.interval, model.sbin
+    total = n + interval
+    feats: List[torch.Tensor] = [None] * total
+    scales = [0.0] * total
+    for i in range(min(interval, total)):
+        scaled = resize(im, 1.0 / sc**i) if i > 0 else im
+        feats[i] = hog(scaled, sbin // 2)
+        scales[i] = sbin / 2 * sc**i
+        j = i + interval
+        if j < total:
+            feats[j] = hog(scaled, sbin)
+            scales[j] = sbin * sc**i
+        j += interval
+        while j < total:
+            scaled = resize(scaled, 0.5)
+            feats[j] = hog(scaled, sbin)
+            scales[j] = 2.0 * scales[j - interval]
+            j += interval
+    return feats, scales
+
+
+def _padded(feats: List[torch.Tensor], model: Model) -> List[torch.Tensor]:
+    """Each level padded by (pad + 1) cells, the occlusion channel 1 on
+    the pad frame (featpyramid.m)."""
     pady, padx = model.pad
     py, px = pady + 1, padx + 1
     out = []
@@ -351,7 +418,7 @@ def pyramid(frame: torch.Tensor, model: Model):
         f[:, :px, -1] = 1.0
         f[:, -px:, -1] = 1.0
         out.append(f)
-    return out, scales
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -552,8 +619,9 @@ def root_score_at(det: Detection, c: int, level: torch.Tensor, x: torch.Tensor,
 
 
 def model_from_arrays(arrays: Dict[str, object], interval: int, sbin: int,
-                      thresh: float) -> Model:
-    """The Model of the benchmark's generated arrays (lib/inputs.py)."""
+                      thresh: float, pyramid: str = "pose") -> Model:
+    """The Model of the benchmark's generated arrays (lib/inputs.py),
+    its pyramid of the form `pyramid`."""
     trees = []
     for c, t in enumerate(arrays["trees"]):
         parent = [int(p) for p in t["parent"].tolist()]
@@ -565,4 +633,4 @@ def model_from_arrays(arrays: Dict[str, object], interval: int, sbin: int,
                           bias=t["bias"], ds=t["ds"].to(torch.int64)))
     return Model(filters=arrays["filters"], trees=trees, interval=int(interval),
                  sbin=int(sbin), thresh=float(thresh), sizes=arrays["sizes"],
-                 maxsize=tuple(arrays["maxsize"]))
+                 maxsize=tuple(arrays["maxsize"]), pyramid=pyramid)

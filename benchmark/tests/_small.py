@@ -2,7 +2,7 @@
 program's CPU path, at frames and pools a test run can hold; and two
 models added to a copy of the benchmark as new files only: three trees
 over a shared pool, and a two-resolution star of filters of several
-sizes."""
+sizes, on either form of the pyramid."""
 
 from __future__ import annotations
 
@@ -73,6 +73,12 @@ def star2_config() -> dict:
     """person26's file in the component form, with STAR2's model and no
     filter_h and filter_w: its sizes are its own."""
     return _component_form("star2", STAR2, drop=("filter_h", "filter_w"))
+
+
+def star2_dpm_config() -> dict:
+    """star2_config, its pyramid in voc-release4's form (an octave of HOG
+    at half the cell size first)."""
+    return {**star2_config(), "name": "star2dpm", "pyramid": "dpm"}
 
 
 def add_config(root: Path, cfg: dict, traffics=("frame", "batch")) -> spec_mod.Spec:

@@ -77,14 +77,24 @@ def test_the_model_arrays_are_the_one_size_harness_bits(config, seed):
     assert all(not t["ds"].any() for t in arrays["trees"])
 
 
-@pytest.mark.parametrize("config", sorted(FIGURES))
-def test_the_new_keys_at_their_defaults_read_as_absent(config):
-    """Each tree's ds all 0, every filter's size and maxsize 5x5, given:
-    the same arrays and figures as the file without them."""
+def _pose(config: str) -> dict:
+    """The configuration's file with its pyramid's form given as "pose"."""
+    return {**spec.load().config(config), "pyramid": "pose"}
+
+
+@pytest.mark.parametrize("config,keys", [
+    *(pytest.param(c, "sizes", id=c) for c in sorted(FIGURES)),
+    *(pytest.param(c, "pyramid", id=f"{c}-pyramid") for c in sorted(FIGURES))])
+def test_the_new_keys_at_their_defaults_read_as_absent(config, keys):
+    """Each tree's ds all 0, every filter's size and maxsize 5x5, given;
+    or the pyramid given as "pose": the same arrays and figures as the
+    file without them."""
     cfg = spec.load().config(config)
     pool, trees = spec.trees(cfg)
     given = {**cfg, "filter_sizes": [[5, 5]] * pool, "maxsize": [5, 5]}
-    if "trees" in cfg:
+    if keys == "pyramid":
+        given = _pose(config)
+    elif "trees" in cfg:
         given["trees"] = [{**t, "ds": [0] * len(t["parents"])} for t in cfg["trees"]]
     else:
         given["ds"] = [0] * len(cfg["parents"])
@@ -117,6 +127,31 @@ def test_the_compare_readings_are_the_one_size_harness_numbers(config):
     frame = inputs.frames(cfg, 1, g, "cpu")[0]
     cands = port.detector(cfg, arrays, "cpu").detect(frame)
     model = ref.model_from_arrays(arrays, cfg["interval"], cfg["sbin"], cfg["thresh"])
+    with torch.no_grad():
+        det = ref.detect(torch.as_tensor(frame), model)
+    assert (len(cands), compare.answer_readings(cands, det, model, cfg, ref)) == READINGS[config]
+
+
+@pytest.mark.parametrize("config", sorted(READINGS))
+def test_a_pose_pyramid_given_reads_the_pinned_figures_and_readings(config):
+    """"pyramid": "pose" given: every work figure, and the readings of
+    the CPU program's answer against the reference built as the harness
+    builds it (lib/detection.py), are the pins above."""
+    torch.set_num_threads(4)
+    cfg = _pose(config)
+    want = FIGURES[config]
+    assert len(work.levels(cfg)) == want["levels"]
+    assert sum(work.response_cells(cfg)) == want["response_cells"]
+    for key in ("conv_work", "conv_work_padded", "conv_bound_s", "dt_bytes", "dt_bound_s"):
+        assert [getattr(work, key)(cfg, images) for images in (1, 8)] == want[key], key
+    assert work.model_flops(cfg) == want["model_flops"]
+    cfg = {**cfg, **_small.FRAME}
+    g = inputs.generator(_small.SEED, "cpu")
+    arrays = inputs.model_arrays(cfg, g, "cpu")
+    frame = inputs.frames(cfg, 1, g, "cpu")[0]
+    cands = port.detector(cfg, arrays, "cpu").detect(frame)
+    model = ref.model_from_arrays(arrays, cfg["interval"], cfg["sbin"], cfg["thresh"],
+                                  pyramid=spec.pyramid(cfg))
     with torch.no_grad():
         det = ref.detect(torch.as_tensor(frame), model)
     assert (len(cands), compare.answer_readings(cands, det, model, cfg, ref)) == READINGS[config]

@@ -181,8 +181,9 @@ def test_the_committed_benchmark_keeps_the_contracts_limits():
 
 
 def _sized(change: str) -> dict:
-    """A configuration with one of the keys filter_sizes, ds or maxsize
-    malformed: STAR2's (the several-tree form) or person26's (one tree)."""
+    """A configuration with one of the keys filter_sizes, ds, maxsize or
+    pyramid malformed: STAR2's (the several-tree form) or person26's
+    (one tree)."""
     if change.startswith("one_tree"):
         cfg = {**spec.load().config("person26"), "name": "one26", "ds": [0] * 26,
                "filter_sizes": [[5, 5]] * 156}
@@ -223,6 +224,19 @@ def _sized(change: str) -> dict:
         cfg["ds"][17] = 2
     elif change == "one_tree_sizes_short":
         cfg["filter_sizes"].pop()
+    elif change == "pyramid_unknown":
+        cfg["pyramid"] = "voc"
+    elif change == "pyramid_not_a_string":
+        cfg["pyramid"] = ["dpm"]
+    elif change == "pyramid_odd_sbin":
+        cfg.update(pyramid="dpm", sbin=5)
+    elif change == "pyramid_small_sbin":
+        cfg.update(pyramid="dpm", sbin=2)
+    elif change == "pyramid_no_octave_part":
+        cfg["pyramid"] = "dpm"
+        trees[1]["ds"] = [0] * 6
+    elif change == "one_tree_pyramid_no_octave_part":
+        cfg["pyramid"] = "dpm"
     return cfg
 
 
@@ -234,9 +248,16 @@ def _sized(change: str) -> dict:
     ("size_zero", "filter 5"), ("size_of_three", "filter 2"), ("size_fraction", "filter 7"),
     ("maxsize_zero", "maxsize"), ("maxsize_one_number", "maxsize"),
     ("one_tree_ds_on_root", "part 0"), ("one_tree_ds_of_two", "part 17"),
-    ("one_tree_sizes_short", "filter_sizes")])
+    ("one_tree_sizes_short", "filter_sizes"),
+    ("pyramid_unknown", "config star2: pyramid 'voc'"),
+    ("pyramid_not_a_string", "config star2: pyramid ['dpm']"),
+    ("pyramid_odd_sbin", "config star2: pyramid 'dpm' needs an even sbin of at least 4"),
+    ("pyramid_small_sbin", "config star2: pyramid 'dpm' needs an even sbin of at least 4"),
+    ("pyramid_no_octave_part", "config star2: pyramid 'dpm': tree 1 has no part at ds = 1"),
+    ("one_tree_pyramid_no_octave_part", "config one26: pyramid 'dpm': tree 0 has no part")])
 def test_a_malformed_size_or_octave_is_refused(tmp_path, change, names):
     """Each new key, malformed, is refused when the benchmark is loaded,
-    by a SpecError that names the part, filter or key at fault."""
+    by a SpecError that names the configuration and the part, filter or
+    key at fault."""
     with pytest.raises(spec.SpecError, match=re.escape(names)):
         _small.add_config(tmp_path, _sized(change), traffics=("frame",))
