@@ -818,6 +818,7 @@ class PartsBasedDetector:
             )
         tree_work["images"] += nimg
         tree_work["dp_pairs"] += len(scores)
+        tree_work["dp_groups"] += graphs.dp.groups()
         # box origin: MATLAB subtracts the virtual padding; the C++ demo
         # subtracts one cell (DynamicProgram.cpp:239)
         off_x = -1 if spec.border == "cpp" else -spec.padx

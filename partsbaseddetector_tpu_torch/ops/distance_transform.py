@@ -28,11 +28,11 @@ of K1, as `pallas_dt.py::dt1d_pallas` selects `_dt1d_pallas_window`.
 from __future__ import annotations
 
 import os
-from functools import partial
+from typing import NamedTuple, Optional
 
 import torch
 
-from .dt_cuda import dt1d, dt1d_window
+from .dt_cuda import dt1d, dt1d_flat, dt1d_window_flat, map_params, out_valid_rows
 from .transpose_cuda import transpose_last2_pair
 
 
@@ -41,6 +41,88 @@ def use_window() -> bool:
     PBD_DT_WINDOW=1 (`partsbaseddetector_tpu/ops/pallas_dt.py::
     _use_window`)."""
     return os.environ.get("PBD_DT_WINDOW", "0") == "1"
+
+
+class DTMaps(NamedTuple):
+    """The per-map parameters of a batch of N maps of one shape for the
+    2-D DT's two passes, flattened once into the form the 1-D kernels
+    take (`dt_maps`): per pass a, b and shift (N,) f32 and the live
+    source counts (N,) int32 clamped to the pass's source rows, and the
+    consumer extents (N, W) int32 clamped to the pass's output rows, or
+    None where none were given (or the shifts are not integral)."""
+
+    ay: torch.Tensor
+    by: torch.Tensor
+    shift_y: torch.Tensor
+    nv_y: torch.Tensor
+    ax: torch.Tensor
+    bx: torch.Tensor
+    shift_x: torch.Tensor
+    nv_x: torch.Tensor
+    ov_y: Optional[torch.Tensor]
+    ov_x: Optional[torch.Tensor]
+
+
+def dt_maps(
+    shape,
+    wdef: torch.Tensor,
+    shift_x,
+    shift_y,
+    dlen_x: int,
+    dlen_y: int,
+    valid_h=None,
+    valid_w=None,
+    out_valid_h=None,
+    out_valid_w=None,
+) -> DTMaps:
+    """shift_distance_transform_2d_packed's per-map parameters for score
+    maps of `shape` (..., H, W), its other arguments as its own, on
+    wdef's device: they follow from the model and the shapes alone, so
+    a caller that runs one shape again and again (the tree DP's plan,
+    ops/dp.py::dp_plan) builds them once, and `shift_distance_transform_
+    2d_maps` then copies nothing per call."""
+    batch = tuple(shape[:-2])
+    h, w = int(shape[-2]), int(shape[-1])
+    dev = wdef.device
+    ay, by, sy, nvy = map_params(batch, h, -wdef[..., 2], -wdef[..., 3], shift_y,
+                                 valid_h, dev)
+    ax, bx, sx, nvx = map_params(batch, w, -wdef[..., 0], -wdef[..., 1], shift_x,
+                                 valid_w, dev)
+    ovy = ovx = None
+    if out_valid_h is not None and out_valid_w is not None:
+        ovy = out_valid_rows(batch, w, out_valid_h, dlen_y, dev)
+        ovx = out_valid_rows(batch, dlen_y, out_valid_w, dlen_x, dev)
+    return DTMaps(ay, by, sy, nvy, ax, bx, sx, nvx, ovy, ovx)
+
+
+def shift_distance_transform_2d_maps(
+    score: torch.Tensor, maps: DTMaps, dlen_x: int, dlen_y: int, step: int = 1
+):
+    """shift_distance_transform_2d_packed without a gradient, on
+    `dt_maps`' parameters for score's shape: the two passes and the two
+    transpose pairs, and nothing else on f32 maps. With consumer extents
+    in maps, step 1 and PBD_DT_WINDOW=1 both passes run K5."""
+    *batch, h, w = score.shape
+    n = maps.ay.shape[0]
+    window = maps.ov_y is not None and step == 1 and use_window()
+    src = score.to(torch.float32).reshape(n, h, w)
+    if window:
+        tmp, iy = dt1d_window_flat(src, maps.ay, maps.by, maps.shift_y, maps.nv_y,
+                                   maps.ov_y, dlen_y)
+    else:
+        tmp, iy = dt1d_flat(src, maps.ay, maps.by, maps.shift_y, maps.nv_y, dlen_y,
+                            step)
+    tmp_t, iy_t = transpose_last2_pair(tmp.view(*batch, dlen_y, w),
+                                       iy.view(*batch, dlen_y, w))
+    tmp_t, iy_t = tmp_t.view(n, w, dlen_y), iy_t.view(n, w, dlen_y)
+    if window:
+        msg_t, ptr_t = dt1d_window_flat(tmp_t, maps.ax, maps.bx, maps.shift_x,
+                                        maps.nv_x, maps.ov_x, dlen_x, iy_t)
+    else:
+        msg_t, ptr_t = dt1d_flat(tmp_t, maps.ax, maps.bx, maps.shift_x, maps.nv_x,
+                                 dlen_x, step, iy_t)
+    return transpose_last2_pair(msg_t.view(*batch, dlen_x, dlen_y),
+                                ptr_t.view(*batch, dlen_x, dlen_y))
 
 
 def shift_distance_transform_2d_packed(
@@ -78,27 +160,21 @@ def shift_distance_transform_2d_packed(
     kernels, as the JAX package's Pallas wrapper does outside its kernel
     (`pallas_dt.py::_dt1d_sublane_call`); the kernels and their plain
     versions stay f32, so the card and the CPU compute alike.
+    Without a gradient this is `dt_maps` then
+    `shift_distance_transform_2d_maps`.
     Returns (msg (..., dlen_y, dlen_x) f32, ptr (Iy << 12) | Ix int32).
     """
+    if not differentiable:
+        maps = dt_maps(score.shape, wdef, shift_x, shift_y, dlen_x, dlen_y, valid_h,
+                       valid_w, out_valid_h, out_valid_w)
+        return shift_distance_transform_2d_maps(score, maps, dlen_x, dlen_y, step)
     score = score.to(torch.float32)
     ax, bx = -wdef[..., 0], -wdef[..., 1]
     ay, by = -wdef[..., 2], -wdef[..., 3]
-    if (
-        out_valid_h is not None
-        and out_valid_w is not None
-        and step == 1
-        and not differentiable
-        and use_window()
-    ):
-        pass_y = partial(dt1d_window, out_valid=out_valid_h)
-        pass_x = partial(dt1d_window, out_valid=out_valid_w)
-    else:
-        pass_y = pass_x = partial(dt1d, step=step, differentiable=differentiable)
-    tmp, iy = pass_y(score, ay, by, shift_y, dlen_y, nvalid=valid_h)
+    tmp, iy = dt1d(score, ay, by, shift_y, dlen_y, step, valid_h, differentiable=True)
     tmp_t, iy_t = transpose_last2_pair(tmp, iy)
-    msg_t, ptr_t = pass_x(
-        tmp_t, ax, bx, shift_x, dlen_x, nvalid=valid_w, aux=iy_t
-    )
+    msg_t, ptr_t = dt1d(tmp_t, ax, bx, shift_x, dlen_x, step, valid_w, aux=iy_t,
+                        differentiable=True)
     return transpose_last2_pair(msg_t, ptr_t)
 
 

@@ -5,9 +5,10 @@ An inference detect runs three long chains of small device ops whose
 host code follows only from shapes, never from values: the HOG pyramid
 (about five thousand ops a VGA frame: the resize and reduce taps, the
 gradients, the tent maps, the block norms, the padding),
-`tree_min_sum` for every (bucket, component) pair (about a thousand ops
-a bucket: index selects, the mixture where-chains, the DT kernels and
-their glue), and the tail after it (detector.py's `_run`: a backtrack
+the tree DP, one forest a bucket over every component it scores
+(`ops/dp.py::forest_min_sum`: about ten ops a tree level at one mixture,
+thirty-five at six: the gather, the add, the DT kernels, the mixture
+where-chain, the scatters), and the tail after it (detector.py's `_run`: a backtrack
 walk a tree, about 380 ops each, the concatenation and the top-k
 select). Each op is a Python call and a launch. For one shape each
 chain is captured once as a CUDA graph and then replayed: the same
@@ -166,10 +167,14 @@ class ShapeGraph:
 
 
 class DPGraph(ShapeGraph):
-    """The DP plans and the CUDA graph of one shape."""
+    """The DP plans (one a bucket) and the CUDA graph of one shape."""
 
     def __init__(self):
         super().__init__(dp_graph_calls)
+
+    def groups(self) -> int:
+        """The level groups of a call's DP: those of its buckets' plans."""
+        return sum(len(plan.groups) for plan in self.plans.values())
 
 
 class PyramidGraph(ShapeGraph):

@@ -244,9 +244,13 @@ def _dt1d_cuda(src, a, b, shift, nvalid, dlen, step, aux):
     return out, ptr
 
 
-def _dt1d_fwd(src, a, b, shift, nvalid, dlen, step, aux):
-    """(B, H, W) forward on the maps' device: the kernel on CUDA, the
-    plain version on the CPU."""
+def dt1d_flat(src, a, b, shift, nvalid, dlen: int, step: int = 1, aux=None):
+    """`dt1d`'s forward (no gradient) on arguments in flatten_maps' form:
+    src (B, H, W), a/b/shift (B,) f32, nvalid (B,) int32 in [0, H], aux
+    (B, H, W) int32 or None; the kernel on CUDA, the plain version on
+    the CPU. It flattens nothing, so a caller that builds the per-map
+    parameters once (`map_params`) copies nothing per call. Returns
+    (out, ptr) (B, dlen, W)."""
     if src.device.type == "cuda":
         return _dt1d_cuda(
             src.contiguous(), a, b, shift, nvalid, dlen, step,
@@ -425,7 +429,7 @@ class DT1dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, src, a, b, shift, nvalid, dlen, step, aux):
-        out, ptr = _dt1d_fwd(src, a, b, shift, nvalid, dlen, step, aux)
+        out, ptr = dt1d_flat(src, a, b, shift, nvalid, dlen, step, aux)
         ctx.save_for_backward(out, ptr, shift)
         ctx.h, ctx.step, ctx.has_aux = src.shape[1], step, aux is not None
         ctx.mark_non_differentiable(ptr)
@@ -457,7 +461,7 @@ def dt1d(src, a, b, shift, dlen: int, step: int = 1, nvalid=None, aux=None,
     if differentiable:
         out, ptr = DT1dFunction.apply(*args[:5], dlen, step, args[5])
     else:
-        out, ptr = _dt1d_fwd(*args[:5], dlen, step, args[5])
+        out, ptr = dt1d_flat(*args[:5], dlen, step, args[5])
     return (
         out.reshape(*batch_shape, dlen, w),
         ptr.reshape(*batch_shape, dlen, w),
@@ -471,20 +475,50 @@ def flatten_maps(src, a, b, shift, nvalid, aux):
     batch_shape = src.shape[:-2]
     h, w = src.shape[-2], src.shape[-1]
     bsz = math.prod(batch_shape)
-    dev = src.device
+    return (
+        src.reshape(bsz, h, w),
+        *map_params(batch_shape, h, a, b, shift, nvalid, src.device),
+        None if aux is None else aux.reshape(bsz, h, w),
+    )
+
+
+def map_params(batch_shape, h: int, a, b, shift, nvalid, device):
+    """flatten_maps' per-map parameters of maps with batch axes
+    batch_shape and h source rows: (a, b, shift) (B,) f32 and nvalid
+    (B,) int32 clamped to [0, h] (default h), contiguous. A caller that
+    runs one batch of maps again and again builds them once and passes
+    them to `dt1d_flat` (ops/distance_transform.py::dt_maps)."""
+    bsz = math.prod(batch_shape)
 
     def per_map(x, dtype):
-        x = torch.as_tensor(x, dtype=dtype, device=dev)
+        x = torch.as_tensor(x, dtype=dtype, device=device)
         return x.broadcast_to(batch_shape).reshape(bsz).contiguous()
 
     return (
-        src.reshape(bsz, h, w),
         per_map(a, torch.float32),
         per_map(b, torch.float32),
         per_map(shift, torch.float32),
         per_map(h if nvalid is None else nvalid, torch.int32).clamp(0, h),
-        None if aux is None else aux.reshape(bsz, h, w),
     )
+
+
+def out_valid_rows(batch_shape, w: int, out_valid, dlen: int, device):
+    """`dt1d_window`'s out_valid for maps with batch axes batch_shape and
+    w columns: (B, W) int32 clamped to [0, dlen], contiguous."""
+    ov = torch.as_tensor(out_valid, dtype=torch.int32, device=device)
+    ov = ov.broadcast_to((*batch_shape, w)).reshape(math.prod(batch_shape), w)
+    return ov.clamp(0, dlen).contiguous()
+
+
+def dt1d_window_flat(src, a, b, shift, nvalid, out_valid, dlen: int, aux=None):
+    """`dt1d_window` on arguments in window_args' form (out_valid (B, W)
+    int32 in [0, dlen]): the kernel on CUDA, the plain version on the
+    CPU. Returns (out, ptr) (B, dlen, W)."""
+    if src.device.type == "cuda":
+        return _dt1d_window_cuda(src, a, b, shift, nvalid, out_valid, dlen, aux)
+    if src.device.type == "cpu":
+        return dt1d_window_plain(src, a, b, shift, nvalid, out_valid, dlen, aux)
+    raise ValueError(f"dt1d_window: no kernel for device {src.device}")
 
 
 def dt1d_window_plain(src, a, b, shift, nvalid, out_valid, dlen: int,
@@ -535,12 +569,9 @@ def window_args(src, a, b, shift, dlen: int, out_valid, nvalid=None,
     kernel and plain version take: (src (B, H, W), a, b, shift, nvalid,
     out_valid (B, W) int32 clamped to [0, dlen], aux or None), all
     contiguous."""
-    batch_shape = src.shape[:-2]
-    w = src.shape[-1]
     src3, a_, b_, s_, nv, aux3 = flatten_maps(src, a, b, shift, nvalid, aux)
-    ov = torch.as_tensor(out_valid, dtype=torch.int32, device=src.device)
-    ov = ov.broadcast_to((*batch_shape, w)).reshape(src3.shape[0], w)
-    return (src3.contiguous(), a_, b_, s_, nv, ov.clamp(0, dlen).contiguous(),
+    ov = out_valid_rows(src.shape[:-2], src.shape[-1], out_valid, dlen, src.device)
+    return (src3.contiguous(), a_, b_, s_, nv, ov,
             None if aux3 is None else aux3.contiguous())
 
 
@@ -556,12 +587,7 @@ def dt1d_window(src, a, b, shift, dlen: int, out_valid, nvalid=None,
     w = src.shape[-1]
     src3, a_, b_, s_, nv, ov, aux3 = window_args(
         src, a, b, shift, dlen, out_valid, nvalid, aux)
-    if src.device.type == "cuda":
-        out, ptr = _dt1d_window_cuda(src3, a_, b_, s_, nv, ov, dlen, aux3)
-    elif src.device.type == "cpu":
-        out, ptr = dt1d_window_plain(src3, a_, b_, s_, nv, ov, dlen, aux3)
-    else:
-        raise ValueError(f"dt1d_window: no kernel for device {src.device}")
+    out, ptr = dt1d_window_flat(src3, a_, b_, s_, nv, ov, dlen, aux3)
     return (
         out.reshape(*batch_shape, dlen, w),
         ptr.reshape(*batch_shape, dlen, w),

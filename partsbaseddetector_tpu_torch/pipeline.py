@@ -42,7 +42,7 @@ from .ops.conv import (
     filter_responses_fft,
 )
 from .ops.conv_cuda import filter_responses_grouped
-from .ops.dp import dp_plan, tree_min_sum
+from .ops.dp import dp_plan, forest_min_sum, tree_min_sum
 from .ops.dp_graph import DPGraph, PyramidGraph, graphable
 from .ops.pyramid import (
     PyramidPlan,
@@ -189,13 +189,18 @@ def root_scores(
     that takes (features, params["filters"]) to the responses under
     autograd; default ops/conv.py::filter_responses. The sharded train
     step passes its tensor-parallel one (parallel/mesh.py).
+    Without params each bucket's DP runs as one forest over every
+    component it scores (ops/dp.py::forest_min_sum), and the
+    BucketScores' tensors are views of the forest's; with params each
+    pair is its own forest of one.
     dp_graph (optional; the detector's, one per image size and batch):
-    the DP plans of this shape, built once, and where `ops/dp_graph.py::
-    graphable` holds (CUDA maps, no params, no autograd recording) the
-    CUDA graph that replays every pair's DP at once, under one `dp`
-    span. The BucketScores then hold the graph's tensors, which its next
-    replay overwrites: the caller consumes them on the same stream first.
-    Elsewhere the DP runs eagerly, a `dp` span a pair.
+    the DP plans of this shape, one a bucket, built once, and where
+    `ops/dp_graph.py::graphable` holds (CUDA maps, no params, no
+    autograd recording) the CUDA graph that replays every bucket's DP at
+    once, under one `dp` span. The BucketScores then hold the graph's
+    tensors, which its next replay overwrites: the caller consumes them
+    on the same stream first. Elsewhere the DP runs eagerly, a `dp` span
+    a bucket (with params, a pair).
     pyramid_graph (optional; the detector's, of the same shape): under
     the same gate, for the frames, the CUDA graph that replays the cast
     to conv_dtype and the whole pyramid under the `pyramid` span; its
@@ -313,42 +318,46 @@ def root_scores(
         if b >= comp.max_ds * bpo
     ]
     trainable = params is not None
-
-    def dp_pair(resps_, b, c, comp):
-        dcomp = dmodel.components[c]
-        plan_ = None
-        if dp_graph is not None and not trainable:
-            plan_ = dp_graph.plan((b, c), lambda: dp_plan(
-                resps_, comp, dcomp, (vhs, vws), b, bpo
-            ))
-
-        def run(resps_, tensors_):
-            return tree_min_sum(
-                resps_, comp, dcomp, valid_extents=(vhs, vws), bucket_index=b,
-                buckets_per_octave=bpo, tensors=tensors_, plan=plan_,
-            )
-
-        tensors = comp.tensors(params) if trainable else None
-        if trainable and not with_tables and remat:
-            rootv, rooti, _ = torch.utils.checkpoint.checkpoint(
-                run, resps_, tensors, use_reentrant=False
-            )
-            return rootv, rooti, {}
-        rootv, rooti, tables = run(resps_, tensors)
-        return rootv, rooti, tables if with_tables else {}
-
-    if dp_graph is not None and graphable(resps, trainable):
-        with span("dp"):
-            results = dp_graph.run(
-                resps, lambda r: [dp_pair(r, *pair) for pair in pairs]
-            )
-    else:
+    if trainable:
         if dp_graph is not None:
             dp_graph.note_eager()
         results = []
         for pair in pairs:
             with span("dp"):
-                results.append(dp_pair(resps, *pair))
+                results.append(_dp_pair(
+                    resps, *pair, dmodel, params, (vhs, vws), bpo, with_tables, remat,
+                ))
+    else:
+        # one forest a bucket: every component it scores, in one DP
+        forests: Dict[int, List[int]] = {}
+        for b, c, _ in pairs:
+            forests.setdefault(b, []).append(c)
+
+        def dp_forest(resps_, b, layout):
+            build = lambda: dp_plan(
+                resps_, [packed.components[c] for c in forests[b]],
+                [dmodel.components[c] for c in forests[b]], (vhs, vws), b, bpo,
+            )
+            got = forest_min_sum(
+                resps_, build() if dp_graph is None else dp_graph.plan(("forest", b), build),
+                layout=layout,
+            )
+            return [(rv, ri, tables if with_tables else {}) for rv, ri, tables in got]
+
+        def dp_all(resps_):
+            layout: Dict[int, torch.Tensor] = {}  # shared by the forests
+            return [out for b in forests for out in dp_forest(resps_, b, layout)]
+
+        if dp_graph is not None and graphable(resps, trainable):
+            with span("dp"):
+                results = dp_graph.run(resps, dp_all)
+        else:
+            if dp_graph is not None:
+                dp_graph.note_eager()
+            results, layout = [], {}
+            for b in forests:
+                with span("dp"):
+                    results.extend(dp_forest(resps, b, layout))
 
     out: List[BucketScores] = []
     for (b, c, _), (rootv, rooti, tables) in zip(pairs, results):
@@ -357,6 +366,28 @@ def root_scores(
             tables = {p: t[0] for p, t in tables.items()}
         out.append(BucketScores(b, c, rootv, rooti, tables))
     return out
+
+
+def _dp_pair(resps, b, c, comp, dmodel, params, valid_extents, bpo, with_tables,
+             remat):
+    """One (bucket, component) pair's trainable DP: its own forest, under
+    `torch.utils.checkpoint` with remat (and without tables)."""
+    dcomp = dmodel.components[c]
+
+    def run(resps_, tensors_):
+        return tree_min_sum(
+            resps_, comp, dcomp, valid_extents=valid_extents, bucket_index=b,
+            buckets_per_octave=bpo, tensors=tensors_,
+        )
+
+    tensors = comp.tensors(params)
+    if not with_tables and remat:
+        rootv, rooti, _ = torch.utils.checkpoint.checkpoint(
+            run, resps, tensors, use_reentrant=False
+        )
+        return rootv, rooti, {}
+    rootv, rooti, tables = run(resps, tensors)
+    return rootv, rooti, tables if with_tables else {}
 
 
 def max_root_score(

@@ -225,14 +225,13 @@ def window_passes(torch, det=None, im=None) -> tuple:
     person26 detect with the window DT (PBD_DT_WINDOW=1; by default a
     fresh detector, buckets_per_octave=2, on the seed-0 VGA frame),
     captured on the card from ops/distance_transform.py's calls of
-    dt1d_window. Each pass is (src, a, b, shift, nvalid, out_valid, dlen,
-    aux) in the form the kernel and `dt1d_window_plain` take
+    dt1d_window_flat. Each pass is (src, a, b, shift, nvalid, out_valid,
+    dlen, aux) in the form the kernel and `dt1d_window_plain` take
     (ops/dt_cuda.py::window_args)."""
     import os
 
     from .. import PartsBasedDetector, make_person_like_model
     from ..ops import distance_transform as dtm
-    from ..ops import dt_cuda
 
     if det is None:
         det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2)
@@ -240,20 +239,19 @@ def window_passes(torch, det=None, im=None) -> tuple:
         im = torch.randint(0, 256, (480, 640, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(0)).numpy()
     calls = []
-    orig = dtm.dt1d_window
+    orig = dtm.dt1d_window_flat
 
-    def record(src, a, b, shift, dlen, out_valid, nvalid=None, aux=None):
-        flat = dt_cuda.window_args(src, a, b, shift, dlen, out_valid, nvalid, aux)
-        calls.append((*flat[:6], dlen, flat[6]))
-        return orig(src, a, b, shift, dlen, out_valid, nvalid=nvalid, aux=aux)
+    def record(*args):
+        calls.append(args + (None,) * (8 - len(args)))
+        return orig(*args)
 
     env = os.environ.get("PBD_DT_WINDOW")
     os.environ["PBD_DT_WINDOW"] = "1"
-    dtm.dt1d_window = record
+    dtm.dt1d_window_flat = record
     try:
         det.detect(im)
     finally:
-        dtm.dt1d_window = orig
+        dtm.dt1d_window_flat = orig
         if env is None:
             os.environ.pop("PBD_DT_WINDOW", None)
         else:

@@ -446,17 +446,21 @@ def tail_graph_counts() -> Dict[str, int]:
 
 
 # the detect path's work by tree so far: detector.py's _run adds to it
-tree_work: Dict[str, int] = {"images": 0, "dp_pairs": 0, "walks": 0, "tail_rows": 0}
+tree_work: Dict[str, int] = {
+    "images": 0, "dp_pairs": 0, "dp_groups": 0, "walks": 0, "tail_rows": 0,
+}
 
 
 def tree_counts() -> Dict[str, int]:
     """What the detect path's `_run` calls did so far, host integers
     counted without a device sync: `images`; `dp_pairs`, the (bucket,
-    tree) DPs it scheduled, one `tree_min_sum` each, whether a graph
-    captured, replayed or ran them eagerly; `walks`, its
-    `backtrack_merged` and `backtrack` calls; `tail_rows`, the candidate
-    rows of every image concatenated across trees before the top-k
-    (`select`)."""
+    tree) DPs it scheduled, whether a graph captured, replayed or ran
+    them eagerly; `dp_groups`, the level groups those DPs ran in
+    (ops/dp.py::dp_plan's: one batched DT each, across every tree a
+    bucket scores, so the trees' depth a bucket where all parts share
+    one grid and mixture count); `walks`, its `backtrack_merged` and
+    `backtrack` calls; `tail_rows`, the candidate rows of every image
+    concatenated across trees before the top-k (`select`)."""
     return dict(tree_work)
 
 

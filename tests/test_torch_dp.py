@@ -20,6 +20,7 @@ import torch
 from partsbaseddetector_tpu.models.model import make_synthetic_model, pack_model
 from partsbaseddetector_tpu.ops import dp as jdp
 from partsbaseddetector_tpu.ops import pyramid as jpyr
+from partsbaseddetector_tpu.train.builder import merge_models
 from partsbaseddetector_tpu_torch.models.convert import model_from_jax
 from partsbaseddetector_tpu_torch.models.model import pack_model as tpack
 from partsbaseddetector_tpu_torch.models.model import to_device
@@ -60,14 +61,18 @@ def _parent_live(comp, p, vhs, vws, b, bpo, s, shape):
     )
 
 
+def _jax_dp(jp, resps, vhs, vws, b, bpo, c=0):
+    return jdp.tree_min_sum(
+        [jnp.asarray(r) for r in resps], jp.components[c], valid_extents=(vhs, vws),
+        bucket_index=b, buckets_per_octave=bpo,
+    )
+
+
 def _run_both(jp, tp, dm, plan, resps, vhs, vws, b, bpo):
     """The JAX DP on one image's stacks and the port's on a batch of
     one (a leading image axis)."""
     comp = jp.components[0]
-    jr = jdp.tree_min_sum(
-        [jnp.asarray(r) for r in resps], comp, valid_extents=(vhs, vws),
-        bucket_index=b, buckets_per_octave=bpo,
-    )
+    jr = _jax_dp(jp, resps, vhs, vws, b, bpo)
     tr = tdp.tree_min_sum(
         [torch.from_numpy(r)[None] for r in resps], tp.components[0],
         dm.components[0], valid_extents=(vhs, vws), bucket_index=b,
@@ -103,6 +108,65 @@ def test_tree_min_sum_matches_jax(bpo):
     for b in range(len(plan.buckets)):
         comp, jr, tr = _run_both(jp, tp, dm, plan, resps, vhs, vws, b, bpo)
         _assert_dp_equal(comp, jr, tr, vhs, vws, b, bpo)
+
+
+def _forest_model():
+    """Three trees over one pool: 6 parts x 3 mixtures (depth <= 5), a
+    7-part chain x 3 (depth 6), and 4 parts x 2 with part 2's subtree
+    one octave finer (ds = 1, step 2). The first two share groups."""
+    a = make_synthetic_model(nparts=6, nmix=3, sbin=4, interval=2, seed=3,
+                             fsizes=[(5, 5), (3, 4), (4, 3)])
+    b = make_synthetic_model(nparts=7, nmix=3, sbin=4, interval=2, seed=4,
+                             chain=True, fsizes=[(4, 4), (3, 3)])
+    c = make_synthetic_model(nparts=4, nmix=2, sbin=4, interval=2, seed=8)
+    for d in c.defid[0][2]:
+        c.anchors[int(d)][2] = 1
+    return merge_models([a, b, c])
+
+
+def _forest(tp, dm, resps, vhs, vws, b, bpo):
+    """The components bucket b scores, run as one forest: {c: (rootv,
+    rooti, tables)} on a batch of one."""
+    comps = [c for c, comp in enumerate(tp.components) if b >= comp.max_ds * bpo]
+    plan = tdp.dp_plan(
+        [torch.from_numpy(r)[None] for r in resps], [tp.components[c] for c in comps],
+        [dm.components[c] for c in comps], (vhs, vws), b, bpo,
+    )
+    got = tdp.forest_min_sum([torch.from_numpy(r)[None] for r in resps], plan)
+    return dict(zip(comps, got)), plan
+
+
+@pytest.mark.parametrize("bpo", [1, 2])
+def test_a_forest_of_three_trees_matches_jax_tree_by_tree(bpo):
+    jp, tp, dm, plan, resps, vhs, vws = _setup(_forest_model(), (48, 64), bpo, seed=4)
+    assert [c.max_ds for c in tp.components] == [0, 0, 1]
+    assert [c.maxmix for c in tp.components] == [3, 3, 2]
+    shared = 0
+    for b in range(len(plan.buckets)):
+        got, fplan = _forest(tp, dm, resps, vhs, vws, b, bpo)
+        assert sorted(got) == ([0, 1, 2] if b >= bpo else [0, 1])
+        shared += sum(len({c for c, _ in g.members}) > 1 for g in fplan.groups)
+        for c, tr in got.items():
+            jr = _jax_dp(jp, resps, vhs, vws, b, bpo, c)
+            _assert_dp_equal(jp.components[c], jr, tr, vhs, vws, b, bpo)
+    assert shared > 0
+
+
+@pytest.mark.parametrize("bpo", [1, 2])
+def test_a_tree_in_a_forest_is_the_tree_alone_bit_for_bit(bpo):
+    """Every table entry, live or not, and the root maps: a tree's DP
+    reads nothing of the other trees of its forest."""
+    _, tp, dm, plan, resps, vhs, vws = _setup(_forest_model(), (48, 64), bpo, seed=5)
+    stacks = [torch.from_numpy(r)[None] for r in resps]
+    for b in range(len(plan.buckets)):
+        got, _ = _forest(tp, dm, resps, vhs, vws, b, bpo)
+        for c, (rootv, rooti, tables) in got.items():
+            want = tdp.tree_min_sum(stacks, tp.components[c], dm.components[c],
+                                    (vhs, vws), b, bpo)
+            assert torch.equal(rootv, want[0]) and torch.equal(rooti, want[1])
+            assert tables.keys() == want[2].keys()
+            for p, tbl in tables.items():
+                assert tbl.shape == want[2][p].shape and torch.equal(tbl, want[2][p])
 
 
 def test_backtrack_merged_matches_jax():

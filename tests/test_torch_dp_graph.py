@@ -3,9 +3,11 @@ test here needs a CUDA device: without one it skips. On the card, run
 
     python -m pytest tests/test_torch_dp_graph.py -m cuda -q --noconftest
 
-person26 at 480x640, one frame and a microbatch of 8: the replayed DP
-gives the eager DP's root maps, root mixtures and pointer tables bit for
-bit, and the detector's outputs and candidates too; frames that differ,
+person26 at 480x640, one frame and a microbatch of 8, and Share-146's
+13 trees (`benchmark/configs/face146.json`) at one frame: the replayed
+DP gives the eager DP's root maps, root mixtures and pointer tables bit
+for bit, with the same K1 and T2 launches, two each a level group, and
+the detector's outputs and candidates too; frames that differ,
 run in turn through one graph, each get their own answer (no stale
 input); distribute_model drops the graph and the next detects use the
 new weights; the hybrid bf16 profile and PBD_DT_WINDOW=1 replay alike;
@@ -14,6 +16,7 @@ and a shape is captured once and replayed from then on (in a process of
 its own, so that the card tests do not depend on their order).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -23,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.lib import inputs, port
 from partsbaseddetector_tpu_torch import PartsBasedDetector, make_person_like_model, pipeline
 from partsbaseddetector_tpu_torch.ops import dp_graph
 from partsbaseddetector_tpu_torch.utils.profiling import dp_graph_counts, launch_counts
@@ -30,6 +34,7 @@ from partsbaseddetector_tpu_torch.utils.profiling import dp_graph_counts, launch
 pytestmark = pytest.mark.cuda
 
 VGA = (480, 640)
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -78,9 +83,24 @@ def _same_candidates(got, want):
         np.testing.assert_array_equal(x.mixtures, y.mixtures)
 
 
-@pytest.mark.parametrize("batch", [1, 8])
-def test_the_replayed_dp_is_the_eager_dp_bit_for_bit(cuda, batch, monkeypatch):
-    det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2, device=cuda)
+def _face146(device):
+    """The benchmark's Share-146 detector: 13 trees over one pool, 14 levels."""
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "face146.json").read_text())
+    g = inputs.generator(4700000113, device)
+    return port.detector(cfg, inputs.model_arrays(cfg, g, device), device)
+
+
+@pytest.mark.parametrize("model,batch", [
+    pytest.param("person", 1, id="1"), pytest.param("person", 8, id="8"),
+    pytest.param("face146", 1, id="face146"),
+])
+def test_the_replayed_dp_is_the_eager_dp_bit_for_bit(cuda, model, batch, monkeypatch):
+    """Every bucket's forest: root maps, mixtures and tables; and the K1
+    and T2 launches, two each a level group, at every call alike."""
+    if model == "face146":
+        det = _face146(cuda)
+    else:
+        det = PartsBasedDetector(make_person_like_model(), buckets_per_octave=2, device=cuda)
     a, b = (torch.as_tensor(np.stack(_frames(batch, seed)), device=cuda) for seed in (1, 2))
     want = {}
     with monkeypatch.context() as m:
@@ -90,10 +110,20 @@ def test_the_replayed_dp_is_the_eager_dp_bit_for_bit(cuda, batch, monkeypatch):
     graph = dp_graph.DPGraph()
     before = dp_graph_counts()
     # eager, captured, then replays of frames that differ in turn
+    launches = []
     for name, ims in (("a", a), ("b", b), ("a", a), ("b", b)):
+        start = launch_counts()
         _same_scores(_scores(det, ims, graph), want[name])
+        launches.append({k: n - start[k] for k, n in launch_counts().items()})
     got = dp_graph_counts()
     assert {k: got[k] - before[k] for k in got} == {"eager": 1, "captures": 1, "replays": 2}
+    groups = graph.groups()
+    nb = len(det._plan(VGA).buckets)
+    if model == "face146":
+        assert len(want["a"]) == 13 * nb and groups == 14 * nb
+    assert all(c == launches[0] for c in launches), launches
+    assert launches[0]["dt1d"] == launches[0]["transpose"] == 2 * groups
+    assert launches[0]["dt1d_aux"] == groups
 
 
 @pytest.mark.parametrize("batch", [1, 8])

@@ -25,9 +25,10 @@ from partsbaseddetector_tpu_torch import detector as detector_mod
 from partsbaseddetector_tpu_torch.models.model import make_synthetic_model, pack_model, to_device
 from partsbaseddetector_tpu_torch.ops import dp as tdp
 from partsbaseddetector_tpu_torch.ops import dp_graph
+from partsbaseddetector_tpu_torch.train import merge_models
 from partsbaseddetector_tpu_torch.train.sgd import model_params
 from partsbaseddetector_tpu_torch.ops.pyramid import mask_responses, response_valid_extents
-from partsbaseddetector_tpu_torch.utils import dp_graph_counts, pyramid_graph_counts
+from partsbaseddetector_tpu_torch.utils import dp_graph_counts, pyramid_graph_counts, tree_counts
 from partsbaseddetector_tpu_torch.utils.profiling import hand_launches, launch_counts
 
 
@@ -78,24 +79,48 @@ def _counts_per_call(comp, resps, ext, b, p, hr_par):
     return nvy, nvx, ovy, ovx
 
 
+def _flat(x, batch, w=None):
+    """A (G, 1, S, M[, W]) per-map array as the DT's (N[, W]) rows: broadcast
+    over the images, flattened map-major."""
+    shape = batch if w is None else (*batch, w)
+    return np.broadcast_to(x, shape).reshape(int(np.prod(batch)), *shape[len(batch):])
+
+
 @pytest.mark.parametrize("octave", [False, True])
 def test_the_plan_holds_the_per_call_counts_and_extents(octave):
     packed, dm, resps, ext = _setup(octave)
-    comp = packed.components[0]
+    comp, dcomp = packed.components[0], dm.components[0]
     b = len(resps) - 1
-    plan = tdp.dp_plan(resps, comp, dm.components[0], ext, b)
-    assert sorted(p for g in plan for p in g.parts) == list(range(1, comp.nparts))
-    assert any(g.step == 2 for g in plan) == octave
-    for g in plan:
-        want = [np.stack(c)[:, None] for c in zip(*(
-            _counts_per_call(comp, resps, ext, b, p, g.hr_par) for p in g.parts))]
-        for got, w in zip((g.nv_y, g.nv_x, g.ov_y, g.ov_x), want):
-            np.testing.assert_array_equal(got.numpy(), w)
-        assert g.ov_y.dtype == torch.int32
-        assert torch.equal(g.defw, dm.components[0].defw[g.pidx][:, None, None])
-        assert torch.equal(g.shift_x, dm.components[0].shift_x[g.pidx][:, None, None])
-    trained = tdp.dp_plan(resps, comp, dm.components[0], ext, b, trainable=True)
-    assert all(g.defw is None and g.nv_y is None and g.ov_x is None for g in trained)
+    plan = tdp.dp_plan(resps, [comp], [dcomp], ext, b)
+    assert sorted(p for g in plan.groups for _, p in g.members) == list(range(1, comp.nparts))
+    assert any(g.step == 2 for g in plan.groups) == octave
+    nimg, s = resps[b].shape[:2]
+    for g in plan.groups:
+        parts = [p for _, p in g.members]
+        h, w = resps[g.bucket].shape[2:4]
+        batch = (len(parts), nimg, s, comp.maxmix)
+        nvy, nvx, ovy, ovx = [np.stack(c)[:, None] for c in zip(*(
+            _counts_per_call(comp, resps, ext, b, p, g.hr_par) for p in parts))]
+        maps = g.maps
+        np.testing.assert_array_equal(maps.nv_y.numpy(), _flat(nvy, batch).clip(0, h))
+        np.testing.assert_array_equal(maps.nv_x.numpy(), _flat(nvx, batch).clip(0, w))
+        np.testing.assert_array_equal(maps.ov_y.numpy(), _flat(ovy, batch, w).clip(0, g.hr_par))
+        np.testing.assert_array_equal(maps.ov_x.numpy(),
+                                      _flat(ovx, batch, g.hr_par).clip(0, g.wr_par))
+        assert maps.ov_y.dtype == maps.nv_y.dtype == torch.int32
+        defw = dcomp.defw[parts][:, None, None].expand(*batch, 4).reshape(-1, 4)
+        for got, k in ((maps.ax, 0), (maps.bx, 1), (maps.ay, 2), (maps.by, 3)):
+            assert torch.equal(got, -defw[:, k])
+        for got, want in ((maps.shift_x, dcomp.shift_x), (maps.shift_y, dcomp.shift_y)):
+            assert torch.equal(got, want[parts][:, None, None].expand(batch).reshape(-1))
+        assert torch.equal(g.bias, dcomp.bias[parts])
+        # the gather's rows: each part's mixtures' filters, image- and scale-major
+        fm = tdp.filter_major(resps[g.bucket])
+        want = resps[g.bucket][:, :s][..., comp.filterid[parts]].permute(4, 0, 1, 5, 2, 3)
+        assert torch.equal(fm[g.rows].view(*batch, h, w), want)
+    trained = tdp.dp_plan(resps, [comp], [dcomp], ext, b, trainable=True)
+    assert all(g.maps is None and g.bias is None for g in trained.groups)
+    assert [r.root_bias for r in trained.roots] == [None]
 
 
 @pytest.mark.parametrize("octave", [False, True])
@@ -103,7 +128,7 @@ def test_tree_min_sum_with_a_plan_built_once_equals_a_plan_per_call(octave):
     packed, dm, resps, ext = _setup(octave)
     comp, dcomp = packed.components[0], dm.components[0]
     for b in range(comp.max_ds, len(resps)):
-        plan = tdp.dp_plan(resps, comp, dcomp, ext, b)
+        plan = tdp.dp_plan(resps, [comp], [dcomp], ext, b)
         for seed in (1, 2):  # one plan, responses that differ
             _, _, rs, _ = _setup(octave, seed=seed)
             want = tdp.tree_min_sum(rs, comp, dcomp, ext, b)
@@ -111,6 +136,40 @@ def test_tree_min_sum_with_a_plan_built_once_equals_a_plan_per_call(octave):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
             assert got[2].keys() == want[2].keys()
             assert all(torch.equal(got[2][p], want[2][p]) for p in got[2])
+
+
+def _tree_depth(comp) -> int:
+    depth = [0] * comp.nparts
+    for p in range(1, comp.nparts):
+        depth[p] = depth[int(comp.parentid[p])] + 1
+    return max(depth)
+
+
+@pytest.mark.parametrize("trees", [1, 13])
+def test_a_buckets_groups_are_its_trees_levels(trees):
+    """Trees whose parts share one grid and mixture count run each depth
+    as one group across the trees: levels x buckets groups a detect,
+    whatever the tree count, and the counter counts them."""
+    models = [make_synthetic_model(nparts=5 + t % 4, nmix=2, sbin=4, interval=2,
+                                   seed=20 + t, chain=t % 3 == 0) for t in range(trees)]
+    model = merge_models(models) if trees > 1 else models[0]
+    det = PartsBasedDetector(model, max_detections=8, device="cpu")
+    frame = (np.random.RandomState(3).rand(48, 64, 3) * 255).astype(np.uint8)
+    before = tree_counts()
+    det.detect(frame)
+    got = {k: v - before[k] for k, v in tree_counts().items()}
+    buckets = len(det._plan(frame.shape[:2]).buckets)
+    levels = max(_tree_depth(c) for c in det._packed.components)
+    assert levels == (4 if trees == 1 else 7)
+    assert got["dp_pairs"] == trees * buckets and got["dp_groups"] == levels * buckets
+    (graphs,) = det._graphs.values()
+    assert len(graphs.dp.plans) == buckets
+    for plan in graphs.dp.plans.values():
+        assert len(plan.groups) == len(plan.levels) == levels
+        assert plan.ncomponents == trees and len(plan.roots) == 1
+        assert sorted(m for g in plan.groups for m in g.members) == sorted(
+            (c, p) for c, comp in enumerate(det._packed.components)
+            for p in range(1, comp.nparts))
 
 
 def test_the_gate_takes_cuda_maps_without_weights_or_autograd(monkeypatch):

@@ -169,7 +169,10 @@ def test_window_selection(env, step, differentiable, with_ov, window, monkeypatc
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(tdt, "dt1d_window", counting("window", tdt.dt1d_window))
+    # a pass without a gradient runs on the flattened maps (dt_maps),
+    # one with a gradient through dt1d
+    monkeypatch.setattr(tdt, "dt1d_window_flat", counting("window", tdt.dt1d_window_flat))
+    monkeypatch.setattr(tdt, "dt1d_flat", counting("k1", tdt.dt1d_flat))
     monkeypatch.setattr(tdt, "dt1d", counting("k1", tdt.dt1d))
     args, (hp, wp), _, (ovy, ovx), _ = _dt2d_case(4)
     ov = dict(out_valid_h=ovy, out_valid_w=ovx) if with_ov else {}

@@ -16,9 +16,10 @@ plain reference (`benchmark/reference/pbd_tree.py`), tree by tree:
 
 at 48x64 on the CPU, and at 480x640 on the card (the root maps of the
 replayed DP graph, and the cell's own comparison of a detect). And the
-detect path's tree counters (`utils.tree_counts`): 13 walks and
-buckets x 13 DPs a face146 detect, 1 and the bucket count a person26
-detect, and a microbatch of 2 counting 2 images in one program.
+detect path's tree counters (`utils.tree_counts`): 13 walks,
+buckets x 13 DPs and buckets x 14 DT groups (the trees' depth) a face146
+detect, 1, the bucket count and buckets x 9 a person26 detect, and a
+microbatch of 2 counting 2 images in one program.
 
 On the card:
 
@@ -151,27 +152,33 @@ def small_detectors():
     return out
 
 
-@pytest.mark.parametrize("name,trees", [("face146", 13), ("person26", 1)])
-def test_a_detect_counts_its_trees(small_detectors, name, trees):
+# the trees and their depth: every part of a configuration on its root's
+# grid with its K mixtures, so one DT group a depth a bucket
+TREES = [("face146", 13, 14), ("person26", 1, 9)]
+
+
+@pytest.mark.parametrize("name,trees,levels", TREES)
+def test_a_detect_counts_its_trees(small_detectors, name, trees, levels):
     det, frames = small_detectors[name]
     before = tree_counts()
     det.detect(frames[0])
     got = _delta(before)
     buckets = len(det._plan(frames[0].shape[:2]).buckets)
-    assert got == {"images": 1, "dp_pairs": buckets * trees, "walks": trees,
-                   "tail_rows": trees * det.max_detections}
+    assert got == {"images": 1, "dp_pairs": buckets * trees, "dp_groups": buckets * levels,
+                   "walks": trees, "tail_rows": trees * det.max_detections}
 
 
-@pytest.mark.parametrize("name,trees", [("face146", 13), ("person26", 1)])
-def test_a_batch_counts_its_images(small_detectors, name, trees):
+@pytest.mark.parametrize("name,trees,levels", TREES)
+def test_a_batch_counts_its_images(small_detectors, name, trees, levels):
     det, frames = small_detectors[name]
     before = tree_counts()
     det.detect_many(frames, microbatch=2)
     got = _delta(before)
     buckets = len(det._plan(frames[0].shape[:2]).buckets)
-    # one program over the stack: a DP pair and a walk a tree carry both images
-    assert got == {"images": 2, "dp_pairs": buckets * trees, "walks": trees,
-                   "tail_rows": 2 * trees * det.max_detections}
+    # one program over the stack: a DP pair, a DT group and a walk a tree
+    # carry both images
+    assert got == {"images": 2, "dp_pairs": buckets * trees, "dp_groups": buckets * levels,
+                   "walks": trees, "tail_rows": 2 * trees * det.max_detections}
 
 
 @pytest.fixture

@@ -40,9 +40,12 @@ def frames():
 
 @pytest.fixture(scope="module")
 def dp_per_image(det, frames):
-    """The (bucket, component) pairs one image's root_scores runs."""
+    """The forests one image's root_scores runs: one a bucket, over its
+    (bucket, component) pairs."""
     im = torch.as_tensor(frames[0])
-    return len(root_scores(im, det._packed, det._dmodel, det._plan(im.shape[:2])))
+    scores = root_scores(im, det._packed, det._dmodel, det._plan(im.shape[:2]))
+    assert len(scores) == 2 * len({s.bucket_index for s in scores})
+    return len({s.bucket_index for s in scores})
 
 
 @pytest.fixture(scope="module")
@@ -142,6 +145,8 @@ def test_a_detects_spans_lie_inside_its_root(detects):
 
 
 def test_a_detect_has_one_dp_span_a_bucket_and_component(detects, dp_per_image):
+    """Off the card the DP runs eagerly, one `dp` span a bucket, over the
+    forest of every component the bucket scores."""
     for root in _check_tree(detects.spans, ROOTS):
         dps = [s for s in detects.spans if s.request == root.id and s.name == "dp"]
         assert len(dps) == dp_per_image > 1

@@ -93,6 +93,18 @@ def _levels(comp):
             for d in range(1, max(depth) + 1)]
 
 
+def _dp_groups(det, nb):
+    """The DT groups of a detect over nb buckets: a bucket's distinct
+    (depth, ds, parent's ds, step, mixtures) over the trees it scores
+    (tree 1 from the second bucket: one octave finer there)."""
+    keys = []
+    for comp in det._packed.components:
+        ds = comp.ds_total
+        keys.append({(d + 1, int(ds[p]), int(ds[comp.parentid[p]]), int(comp.step[p]),
+                      comp.maxmix) for d, level in enumerate(_levels(comp)) for p in level})
+    return len(keys[0]) + (nb - 1) * len(keys[0] | keys[1])
+
+
 def _same(got, want):
     if isinstance(got, torch.Tensor):
         assert got.dtype == want.dtype and torch.equal(got, want)
@@ -260,7 +272,8 @@ def test_the_tail_is_captured_with_the_dp_and_replayed_after(monkeypatch):
     assert _delta(dp_before, dp_graph_counts) == {"eager": 1, "captures": 1, "replays": 3}
     nb = len(det._plan(frames[0].shape[:2]).buckets)
     assert all(c == per_call[0] for c in per_call)
-    assert per_call[0] == {"images": 1, "dp_pairs": 2 * nb - 1, "walks": nb,
+    assert per_call[0] == {"images": 1, "dp_pairs": 2 * nb - 1,
+                           "dp_groups": _dp_groups(det, nb), "walks": nb,
                            "tail_rows": nb * det.max_detections}
     (graphs,) = det._graphs.values()
     assert graphs.tail.graphed and graphs.dp.graphed
